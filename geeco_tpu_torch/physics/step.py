@@ -1,0 +1,80 @@
+"""Full physics step: smooth dynamics -> collide -> solve -> integrate.
+
+Counterpart of ``geeco_tpu/physics/step.py``.  ``build_stepper(model)``
+precomputes the static structure; ``Stepper.substep`` and ``Stepper.step``
+advance B envs at once (the JAX package vmaps and scans; here the env axis
+is written out and the substeps are a Python loop).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+
+from ..core.model import Kin, Model, State
+from . import collision as C
+from . import dynamics as D
+from . import kinematics as K
+from . import solver as S
+
+
+class Stepper(NamedTuple):
+  model: Model
+  anc_mask: np.ndarray
+  cs: S.ConstraintStatic
+  ne: int
+
+  def fk(self, state: State) -> Kin:
+    return K.fk(self.model, state)
+
+  def _substep_c(self, state: State, solver_iterations: int,
+                 contacts: C.Contacts | None
+                 ) -> tuple[State, C.Contacts]:
+    model = self.model
+    dt = model.opt.timestep
+    smooth = D.smooth_dynamics(model, state, self.anc_mask, dt)
+    if contacts is None:
+      contacts = C.collide(model, smooth.kin)
+    con = S.make_constraints(model, self.cs, smooth, contacts, state,
+                             self.anc_mask)
+    f, qacc = S.solve(model, self.cs, smooth, con, state.efc_force,
+                      iterations=solver_iterations)
+    qvel = state.qvel + dt * qacc
+    qpos = K.integrate_qpos(model, state.qpos, qvel, dt)
+    return state.replace(qpos=qpos, qvel=qvel, time=state.time + dt,
+                         efc_force=f), contacts
+
+  def substep(self, state: State, solver_iterations: int = 60) -> State:
+    return self._substep_c(state, solver_iterations, None)[0]
+
+  def step(self, state: State, n_substeps: int = 20,
+           solver_iterations: int = 60, collide_every: int = 1) -> State:
+    """n_substeps of physics.
+
+    ``collide_every=k`` runs narrowphase collision once per k substeps and
+    reuses the contact set for the k-1 following substeps; Jacobians,
+    reference accelerations and the solve still use each substep's own
+    kinematics.  k=1 (default) collides every substep, as mj_step does.
+    """
+    k = max(1, collide_every)
+    if n_substeps % k:
+      raise ValueError(f'n_substeps={n_substeps} is not a multiple of '
+                       f'collide_every={k}')
+    contacts = None
+    for i in range(n_substeps):
+      if i % k == 0:
+        contacts = None
+      state, contacts = self._substep_c(state, solver_iterations, contacts)
+    return state
+
+  def init_state(self, state: State) -> State:
+    """Attach a zero warmstart vector of the right static size."""
+    return state.replace(efc_force=state.qpos.new_zeros(
+        (state.qpos.shape[0], self.ne)))
+
+
+def build_stepper(model: Model, contact_select_k: int = 128) -> Stepper:
+  anc_mask = K.ancestor_mask(model)
+  cs = S.constraint_static(model, anc_mask, select_k=contact_select_k)
+  return Stepper(model=model, anc_mask=anc_mask, cs=cs, ne=cs.ne)

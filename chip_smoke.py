@@ -3,24 +3,48 @@
 
   python3 chip_smoke.py [--profile OUT.txt]
 
-Drives the port's main path at production settings: GeecoEnv('pad2-cube2')
-on the card (256x256 frames, 20 substeps of 2 ms, 60 PSD iterations,
-top-128 contacts, rolling rows, binning caps 512/192, shadows), then
-reset_random and control steps of env.step + env.render.  Phases, in order;
-any failure exits non-zero:
+Drives the port's two paths at production settings on the card:
+
+  slice 1: GeecoEnv('pad2-cube2') (256x256 frames, 20 substeps of 2 ms, 60
+           PSD iterations, top-128 contacts, rolling rows, binning caps
+           512/192, shadows): reset_random and control steps of env.step +
+           env.render;
+  slice 2: GeecoEnv('pad2-cube2', rolling=False, solver_method='pallas'),
+           whose solve is the fused PSD kernel: the scripted pick-and-place
+           expert's 100-step state-only episodes (expert.policies.rollout).
+
+Phases, in order; any failure exits non-zero:
 
   1. a CUDA device is required; print its name and power limit
   2. build the CUDA kernels from csrc/ (nvcc, sm_90a) and time the build
   3. the raster kernel against its plain PyTorch twin, on random planes at
      the production shapes and on planes binned from real frames
   4. the slice: reset_random, then control steps of step + render, with
-     sanity checks and the count of raster-kernel launches; env-steps/s
+     sanity checks and the count of raster-kernel launches; env-steps/s;
+     one profiled control step (kernel launches, device time)
   5. fidelity: replay the recorded MuJoCo pick episode
      (tests/fixtures/mujoco_pickplace_pad2cube2.npz) through reset_to + step
-     and require task success with the task object within 30 mm
+     and require task success with the task object within 30 mm; this runs
+     in a second process (this script with --replay-only) beside phases
+     6-8, since both are host-bound and the card idles most of the time
+  6. the PSD kernel against its plain twin at B=64: on random operands at
+     the real shapes (with and without weld rows), and on the operands of
+     a real substep 5 control steps into the expert episode, where the
+     substep through the kernel is also held against the substep through
+     the twin; the first substep after reset_random, where the solve is
+     unstable to float32 rounding, is reported beside the twin's own
+     change under reordered sums, not gated
+  7. slice 2: the expert's 100-step episodes at B=64, with the count of
+     PSD-kernel launches (one per substep), env-steps/s and task success;
+     one profiled control step
+  8. fidelity of slice 2: the MuJoCo pick replay through the slice-2 env,
+     run as a 65th env in phase 7's batch (the step is host-bound: the
+     replay then costs no time of its own)
 
-The line before the last is a JSON object describing each kernel; the last
-line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
+The kernels are timed after phase 5's process has ended.  The line before
+the last two is a JSON object describing each kernel; then
+the card's name and power limit; the last line is {"ok": true, "device":
+{...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -44,8 +68,19 @@ FIXTURE = os.path.join(ROOT, 'tests', 'fixtures',
 MISMATCH_TOL = 1e-4
 IZ_ATOL = 1e-6          # inverse-depth agreement on matching pixels
 CPU_FRAME_TOL = 5e-3    # CUDA vs CPU full frame: edge pixels only
-ENVS = 64               # batch of the slice
+ENVS = 64               # batch of both slices
 STEPS = 5               # control steps of step + render
+# PSD kernel vs twin: the JAX package's pallas-vs-psd tolerances
+# (tests/test_solver_pallas.py:87-91); sums run in another order
+FORCE_TOL = dict(rtol=1e-2, atol=2e-3)
+QVEL_TOL = dict(rtol=1e-3, atol=1e-4)
+EPISODE = 100           # control steps of an expert episode (run/sim.py:36)
+MIN_SUCCESS = 0.80      # expert task success over the B envs
+DRIFT_LIMIT = 0.03      # replay: task-object drift from the MuJoCo trace
+# the H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM bytes/s,
+# float32 operations/s outside the tensor cores
+HBM_RATE = 3.35e12
+FP32_RATE = 67e12
 
 
 def fail(msg: str):
@@ -98,6 +133,182 @@ def compare_raster(coeffs, tile, sky, rk, label):
   return err, ms, plain_ms
 
 
+def profile_step(fn, label, card, path=''):
+  """One call of fn under torch.profiler: the CUDA kernel launches it made
+  and the device time they took (profiled, so the host is slower than
+  unprofiled); with ``path``, the profiler's tables are written there."""
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  events = prof.key_averages()
+  launches = sum(e.count for e in events
+                 if e.key.startswith(('cudaLaunchKernel', 'cuLaunchKernel')))
+  device_ms = sum(getattr(e, 'self_device_time_total', 0)
+                  for e in events) / 1e3
+  print(f'[profile] {label}: {launches} kernel launches, device time '
+        f'{device_ms:.1f} ms, wall {wall:.2f} s (profiled) on {card}',
+        flush=True)
+  if path:
+    with open(path, 'w') as f:
+      f.write(f'# {label}, {card}\n')
+      f.write(events.table(sort_by='cuda_time_total', row_limit=40))
+      f.write('\n' + events.table(sort_by='cpu_time_total', row_limit=25))
+    print(f'[profile] written to {path}', flush=True)
+
+
+def bound(nbytes: float, ops: float):
+  """The least time the card could take: (ms, 'bytes' or 'operations')."""
+  t_bytes, t_ops = nbytes / HBM_RATE, ops / FP32_RATE
+  return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
+                                     else 'operations')
+
+
+def within(got, ref, rtol, atol, label):
+  """Check |got - ref| <= atol + rtol |ref| everywhere; (max_abs, max_rel)."""
+  diff = (got - ref).abs()
+  bad = int((diff > atol + rtol * ref.abs()).sum())
+  big = ref.abs() > atol
+  max_rel = float((diff[big] / ref.abs()[big]).max()) if bool(big.any()) \
+      else 0.0
+  print(f'[{label}] max_abs_err {float(diff.max()):.6g}, max_rel_err '
+        f'{max_rel:.6g} (|ref| > {atol:g}), {bad} of {diff.numel()} outside '
+        f'rtol={rtol:g} atol={atol:g}', flush=True)
+  check(bad == 0, f'{label}: {bad} values outside the tolerance')
+  return float(diff.max()), max_rel
+
+
+def replay_spec(fx):
+  """The fixture's reset as a B=1 ResetSpec."""
+  from geeco_tpu_torch.envs.base import ResetSpec
+  obj = fx['init_obj_qpos'].copy()
+  obj[:, 2] -= 0.025   # reset_to re-adds the table-height adjust
+  return ResetSpec(obj_qpos=torch.as_tensor(obj)[None],
+                   mocap_qpos=torch.as_tensor(fx['init_mocap_qpos'])[None],
+                   task_goal=torch.tensor([0]), task_object=torch.tensor([0]))
+
+
+def obj_adrs(env, fx):
+  return [env.model.jnt_qposadr[env.model.joint(str(j))]
+          for j in fx['obj_joint_names']]
+
+
+def check_replay(label, fx, trace, metrics, seconds):
+  """Task success and task-object drift of a replayed MuJoCo episode;
+  trace [T, n_obj, 3] after each step.  Returns the drift (m)."""
+  m = {k: float(v) for k, v in metrics.items()}
+  drift = np.linalg.norm(trace - fx['obj_pos_trace'], axis=-1).max(axis=0)
+  print(f'[{label}] {len(fx["cmds"])} replayed steps in {seconds:.1f} s: '
+        f'task_success {m["task_success"]}, goal_dist {m["goal_dist"]:.4f} '
+        f'(MuJoCo {float(fx["final_goal_dist"]):.4f}), task-object drift '
+        f'{drift[0] * 1000:.2f} mm', flush=True)
+  check(bool(np.isfinite(trace).all()), f'{label}: non-finite replay trace')
+  check(m['task_success'] == 1.0, f'{label}: the replayed pick did not '
+        'succeed')
+  check(drift[0] < DRIFT_LIMIT, f'{label}: task-object drift '
+        f'{drift[0]:.4f} m >= {DRIFT_LIMIT} m')
+  return float(drift[0])
+
+
+def replay(env, label):
+  """The recorded MuJoCo pick episode through reset_to + step at B=1."""
+  fx = np.load(FIXTURE)
+  t0 = time.perf_counter()
+  es = env.reset_to(replay_spec(fx))
+  adrs = obj_adrs(env, fx)
+  trace = []
+  for cmd in fx['cmds']:
+    es = env.step(es, torch.as_tensor(cmd)[None])
+    trace.append(torch.stack([es.phys.qpos[0, a:a + 3] for a in adrs]))
+  trace = torch.stack(trace).cpu().numpy()
+  metrics = {k: v[0] for k, v in env.eval_metrics(es).items()}
+  return check_replay(label, fx, trace, metrics, time.perf_counter() - t0)
+
+
+def cat_env_states(a, b):
+  """Two batches of envs as one."""
+  cat = lambda x, y: torch.cat([x, y])
+  phys = a.phys.replace(**{
+      f.name: cat(getattr(a.phys, f.name), getattr(b.phys, f.name))
+      for f in dataclasses.fields(a.phys)})
+  return a.replace(phys=phys, **{
+      k: cat(getattr(a, k), getattr(b, k))
+      for k in ('ts', 'task_goal', 'task_object', 'goal_pos', 'rgba')})
+
+
+def capture_solve(env, es, SP):
+  """The fused-solve operands of one substep of env from es."""
+  with SP.capture() as calls:
+    env.stepper.substep(es.phys, env.solver_iterations, 'pallas')
+  check(len(calls) == 1, f'{len(calls)} fused solves in one substep')
+  return calls[0]
+
+
+def reversed_sums(ops):
+  """The same solve with the nv axis reversed: the same float32 math, its
+  sums over nv taken in another order."""
+  rev = torch.arange(ops['J'].shape[2] - 1, -1, -1, device=ops['J'].device)
+  return dict(ops, J=ops['J'][:, :, rev].contiguous(),
+              X=ops['X'][:, rev].contiguous())
+
+
+def report(label, got, ref):
+  """Print how far got is from ref against FORCE_TOL, without a gate."""
+  diff = (got - ref).abs()
+  bad = diff > FORCE_TOL['atol'] + FORCE_TOL['rtol'] * ref.abs()
+  print(f'[{label}] max_abs {float(diff.max()):.6g}; {int(bad.sum())} of '
+        f'{diff.numel()} values in {int(bad.any(1).sum())} of '
+        f'{diff.shape[0]} envs outside rtol={FORCE_TOL["rtol"]:g} '
+        f'atol={FORCE_TOL["atol"]:g} (not a gate)', flush=True)
+
+
+def random_psd_operands(B, K, nlim, nv, nE, gen):
+  """Random well-posed operands of the fused PSD solve on the card."""
+  dev = gen.device
+  nI = 4 * K + 2 * nlim
+  r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+  u = lambda *s: torch.rand(*s, generator=gen, device=dev)
+  J = r(B, nI, nv) / nv ** 0.5
+  A = r(B, nv, nv) / nv ** 0.5
+  M = torch.eye(nv, device=dev) + A @ A.transpose(1, 2)
+  X = torch.linalg.solve(M, J.transpose(1, 2)).contiguous()
+  R = 0.1 + u(B, nI)
+  if nE:
+    JE = r(B, nE, nv) / nv ** 0.5
+    XE = torch.linalg.solve(M, JE.transpose(1, 2))
+    AIE = (J @ XE).contiguous()
+    EEinv = torch.linalg.inv(JE @ XE + torch.diag_embed(
+        0.1 + u(B, nE))).contiguous()
+  else:
+    AIE = J.new_zeros((B, nI, 0))
+    EEinv = J.new_zeros((B, 0, 0))
+  diag = (J * X.transpose(1, 2)).sum(-1) + R
+  return dict(J=J, X=X, A_IE=AIE, EEinv=EEinv, R=R, b=r(B, nI),
+              precond=1.0 / diag, f0=r(B, nI), mu_t=0.5 + 0.5 * u(B, K),
+              mu_tor=0.005 + 0.01 * u(B, K),
+              con_act=(u(B, K) > 0.3).float(),
+              lim_act=(u(B, 2 * nlim) > 0.5).float(), K=K, nlim=nlim,
+              iterations=60)
+
+
+def psd_work(ops):
+  """(bytes, operations) of one fused PSD solve: each operand read once and
+  the forces written once; per iteration two operator applications (u, w,
+  z, the rows), g, d, the two dot products, the update and the
+  projection."""
+  B, nI, nv = ops['J'].shape
+  nE, K, nlim = ops['A_IE'].shape[2], ops['K'], ops['nlim']
+  nbytes = 4 * (sum(t.numel() for t in ops.values()
+                    if isinstance(t, torch.Tensor)) + B * nI)
+  op = 4 * (nv + nE) * nI + 2 * nE * nE + 3 * nI
+  per_iter = 2 * op + 8 * nI + 18 * K + 4 * nlim
+  return nbytes, float(B) * ops['iterations'] * per_iter
+
+
 def random_planes(B, n_tiles, K, tile, gen):
   """Random vertex planes [B, n_tiles, K] as _bin_hierarchical emits them."""
   dev = gen.device
@@ -114,7 +325,11 @@ def random_planes(B, n_tiles, K, tile, gen):
 def main():
   ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   ap.add_argument('--profile', default='',
-                  help='write a torch.profiler table of one control step')
+                  help='write the torch.profiler tables of one slice-1 '
+                  'control step there')
+  ap.add_argument('--replay-only', action='store_true',
+                  help='phase 5 alone: the slice-1 MuJoCo replay (a full '
+                  'run starts this as its second process)')
   args = ap.parse_args()
 
   # ---- 1. the card
@@ -130,10 +345,13 @@ def main():
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
 
-  from geeco_tpu_torch.envs.base import ResetSpec, make_env
+  from geeco_tpu_torch.envs.base import make_env
+  from geeco_tpu_torch.expert import policies as EP
+  from geeco_tpu_torch.physics import solver_pallas as SP
   from geeco_tpu_torch.render import raster_kernel as rk
   from geeco_tpu_torch.render import rasterizer as R
   from geeco_tpu_torch.utils import build
+  t_start = time.perf_counter()
 
   # ---- 2. build
   t0 = time.perf_counter()
@@ -141,6 +359,14 @@ def main():
   print(f'[build] kernels ready in {time.perf_counter() - t0:.2f} s '
         f'(nvcc {build.last_build_seconds:.2f} s) -> '
         f'{os.path.relpath(build.library_path(), ROOT)}', flush=True)
+  for line in build.last_build_log.splitlines():
+    if 'registers' in line or 'smem' in line:
+      print(f'[build] {line.strip()}', flush=True)
+
+  if args.replay_only:
+    env = make_env('pad2-cube2', device='cuda')
+    replay(env, 'fidelity')
+    return
 
   # ---- 3a. raster kernel vs twin on random planes at production shapes
   dev = torch.device('cuda')
@@ -151,7 +377,7 @@ def main():
                            TS, 2)
   err_rand, _, _ = compare_raster(coeffs, TS, sky, rk, 'random')
 
-  # ---- 4. the slice
+  # ---- 4. slice 1
   t0 = time.perf_counter()
   env = make_env('pad2-cube2', device='cuda')
   env.setup()
@@ -169,9 +395,15 @@ def main():
   tp = R._project_and_shade(env.renderer, kin, es.rgba)
   coeffs = R._coeff_planes(R._bin_hierarchical(env.renderer, tp), TS, 2)
   err_real, ms, plain_ms = compare_raster(coeffs, TS, sky, rk, 'frame')
+  B_, nt_, _, K_ = coeffs.shape
+  raster_bound = bound(
+      4 * (coeffs.numel() + 2 * B_ * nt_ * TS * TS),
+      # per pixel and slot: 4 affine forms (2 mul + 2 add) and 4 compares
+      20.0 * B_ * nt_ * TS * TS * K_)
 
   base = torch.tensor([0.1, 0.0, 0.2, 1.0], device=dev).expand(ENVS, 4)
   rk.raster_tiles.launches = 0
+  SP.psd_solve.launches = 0
   torch.cuda.synchronize()
   t0 = time.perf_counter()
   renders = 0
@@ -183,6 +415,7 @@ def main():
   torch.cuda.synchronize()
   dt = time.perf_counter() - t0
   launches = rk.raster_tiles.launches
+  psd_launches_slice1 = SP.psd_solve.launches
   rate = ENVS * STEPS / dt
   print(f'[slice] {STEPS} control steps (step + render) at '
         f'B={ENVS}: {dt:.3f} s -> {rate:.2f} env-steps/s on {card}',
@@ -200,9 +433,11 @@ def main():
   check(bool(torch.isfinite(depth).all()), 'non-finite depth')
   flat = rgb.reshape(ENVS, -1, 3).float()
   check(bool((flat.std(dim=1).mean(-1) > 10).all()), 'a frame is constant')
-  print(f'[slice] raster kernel launches: {launches} for {renders} renders',
-        flush=True)
+  print(f'[slice] raster kernel launches: {launches} for {renders} renders; '
+        f'PSD kernel launches: {psd_launches_slice1} (rolling rows, ngrp=6: '
+        'the plain psd iteration)', flush=True)
   check(launches == renders, 'the raster kernel did not run once per render')
+  check(psd_launches_slice1 == 0, 'the PSD kernel ran on the ngrp=6 path')
 
   # env 0's state rendered by the CPU path (the plain twin)
   cpu_env = make_env('pad2-cube2', device='cpu')
@@ -215,60 +450,172 @@ def main():
         f'(tolerance {CPU_FRAME_TOL:g})', flush=True)
   check(diff <= CPU_FRAME_TOL, 'CUDA frame disagrees with the CPU path')
 
-  if args.profile:
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-      es = env.step(es, base)
-      env.render(es)
-      torch.cuda.synchronize()
-    with open(args.profile, 'w') as f:
-      f.write(f'# one control step + render, B={ENVS}, {card}\n')
-      f.write(prof.key_averages().table(sort_by='cuda_time_total',
-                                        row_limit=40))
-      f.write('\n' + prof.key_averages().table(sort_by='cpu_time_total',
-                                               row_limit=25))
-    print(f'[profile] written to {args.profile}', flush=True)
+  profile_step(lambda: env.render(env.step(es, base)),
+               f'slice 1, one control step + render, B={ENVS}', card,
+               args.profile)
 
-  # ---- 5. fidelity: the recorded MuJoCo pick episode
-  fx = np.load(FIXTURE)
-  obj = fx['init_obj_qpos'].copy()
-  obj[:, 2] -= 0.025   # reset_to re-adds the table-height adjust
-  spec = ResetSpec(obj_qpos=torch.as_tensor(obj)[None],
-                   mocap_qpos=torch.as_tensor(fx['init_mocap_qpos'])[None],
-                   task_goal=torch.tensor([0]), task_object=torch.tensor([0]))
-  t0 = time.perf_counter()
-  es = env.reset_to(spec)
-  adrs = [env.model.jnt_qposadr[env.model.joint(str(j))]
-          for j in fx['obj_joint_names']]
-  trace = []
-  for cmd in fx['cmds']:
-    es = env.step(es, torch.as_tensor(cmd)[None])
-    trace.append(torch.stack([es.phys.qpos[0, a:a + 3] for a in adrs]))
-  trace = torch.stack(trace).cpu().numpy()
-  m = {k: float(v[0]) for k, v in env.eval_metrics(es).items()}
-  drift = np.linalg.norm(trace - fx['obj_pos_trace'], axis=-1).max(axis=0)
-  print(f'[fidelity] {len(fx["cmds"])} replayed steps in '
-        f'{time.perf_counter() - t0:.1f} s: task_success '
-        f'{m["task_success"]}, goal_dist {m["goal_dist"]:.4f} (MuJoCo '
-        f'{float(fx["final_goal_dist"]):.4f}), task-object drift '
-        f'{drift[0] * 1000:.2f} mm', flush=True)
-  check(bool(np.isfinite(trace).all()), 'non-finite replay trace')
-  check(m['task_success'] == 1.0, 'the replayed pick did not succeed')
-  check(drift[0] < 0.03, f'task-object drift {drift[0]:.4f} m >= 0.03 m')
-
-  kernels = [{
+  # ---- 5. fidelity: the recorded MuJoCo pick episode, in a second
+  # process that runs while this one drives slice 2: both are host-bound
+  # and the card is idle most of the time, so the two overlap
+  del env, cpu_env, es, rgb, depth, coeffs
+  k1 = {
       'name': 'raster_tiles', 'route': 'cuda',
       'source': 'geeco_tpu_torch/csrc/raster_tiles.cu',
       'replaces': 'geeco_tpu/render/rasterizer.py:778',
       'launches': launches, 'max_abs_err': max(err_rand, err_real),
-      'ms': ms, 'plain_ms': plain_ms,
-  }]
-  print(json.dumps({'kernels': kernels}))
+      'ms': ms, 'plain_ms': plain_ms, 'bound_ms': raster_bound[0],
+      'bound_by': raster_bound[1], 'library_ms': None,
+  }
+  child = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                            '--replay-only'])
+  try:
+    k2 = slice2(card, dev, gen, rate, child)
+  finally:
+    if child.poll() is None:
+      child.kill()
+      child.wait()
+  print(f'[total] {time.perf_counter() - t_start:.1f} s after the device '
+        'check', flush=True)
+  print(json.dumps({'kernels': [k1, k2]}))
   print(card)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
       'count': torch.cuda.device_count()}}))
+
+
+def slice2(card, dev, gen, rate, child):
+  """Phases 6-8 (slice 2), then the wait for phase 5's process; returns
+  the PSD kernel's entry of the kernels line."""
+  from geeco_tpu_torch.envs.base import make_env
+  from geeco_tpu_torch.expert import policies as EP
+  from geeco_tpu_torch.physics import solver_pallas as SP
+  from geeco_tpu_torch.render import raster_kernel as rk
+
+  # ---- 6. the PSD kernel against its twin, on real and random operands
+  t0 = time.perf_counter()
+  k2env = make_env('pad2-cube2', device='cuda', rolling=False,
+                   solver_method='pallas')
+  k2env.setup()
+  es = k2env.reset_random(ENVS, torch.Generator(device=dev).manual_seed(2))
+  torch.cuda.synchronize()
+  print(f'[psd] slice-2 env (rolling=False, pallas, ngrp='
+        f'{k2env.stepper.cs.ngrp}) built, set up and reset at B={ENVS} in '
+        f'{time.perf_counter() - t0:.1f} s', flush=True)
+  # 6a. random well-posed operands at the real shapes, with and without
+  # the weld rows
+  psd_err = 0.0
+  for nE in (6, 0):
+    rnd = random_psd_operands(ENVS, 128, 9, 39, nE, gen)
+    e, _ = within(SP.psd_solve(**rnd), SP.psd_solve_reference(**rnd),
+                  label=f'psd:random forces, nE={nE}', **FORCE_TOL)
+    psd_err = max(psd_err, e)
+  # 6b. the first substep after reset_random, where the 60-iteration solve
+  # is unstable to float32 rounding: shown beside the twin's own change
+  # when only the order of its sums changes (the nv axis reversed); no gate
+  ops = capture_solve(k2env, es, SP)
+  f_r = SP.psd_solve_reference(**ops)
+  report('psd:reset kernel vs twin', SP.psd_solve(**ops), f_r)
+  report('psd:reset twin, sums reordered, vs twin',
+         SP.psd_solve_reference(**reversed_sums(ops)), f_r)
+  # 6c. a substep of the expert episode after 5 control steps: the kernel
+  # against the twin on its operands, and the substep through each
+  es5, _ = EP.rollout(k2env, es, EP.make_expert(k2env), length=5)
+  ops = capture_solve(k2env, es5, SP)
+  print(f'[psd] operands of one substep: B={ops["J"].shape[0]}, nI='
+        f'{ops["J"].shape[1]}, nv={ops["J"].shape[2]}, nE='
+        f'{ops["A_IE"].shape[2]}, K={ops["K"]}, nlim={ops["nlim"]}, '
+        f'{ops["iterations"]} iterations', flush=True)
+  f_k = SP.psd_solve(**ops)
+  check(bool(torch.isfinite(f_k).all()), 'PSD kernel forces not finite')
+  e, _ = within(f_k, SP.psd_solve_reference(**ops),
+                label='psd:episode forces', **FORCE_TOL)
+  psd_err = max(psd_err, e)
+  sub_k = k2env.stepper.substep(es5.phys, k2env.solver_iterations, 'pallas')
+  real = SP.psd_solve
+  SP.psd_solve = SP.psd_solve_reference   # this one substep through the twin
+  try:
+    sub_r = k2env.stepper.substep(es5.phys, k2env.solver_iterations,
+                                  'pallas')
+  finally:
+    SP.psd_solve = real
+  within(sub_k.qvel, sub_r.qvel, label='psd:episode substep qvel',
+         **QVEL_TOL)
+  del es5, sub_k, sub_r
+
+  # ---- 7 + 8. slice 2: the expert's state-only episodes at B=64 and, as
+  # env 64 of the same batch, the recorded MuJoCo pick episode (phase 8):
+  # the step is host-bound, so one batch of 65 envs costs what one of 64
+  # does, and the replay needs no loop of its own
+  fx = np.load(FIXTURE)
+  es = cat_env_states(es, k2env.reset_to(replay_spec(fx)))
+  cmds = torch.as_tensor(fx['cmds'], device=dev)
+  adrs = torch.as_tensor(obj_adrs(k2env, fx), device=dev)
+  expert = EP.make_expert(k2env)
+
+  def expert_and_replay(e, xs):
+    action, xs = expert(e, xs)
+    return torch.cat([action[:ENVS], cmds[e.ts[ENVS:]]]), xs
+
+  def obj_pos(env, e, action, xs, textures=None):
+    return e.phys.qpos[:, adrs[:, None] + torch.arange(3, device=dev)]
+
+  rk.raster_tiles.launches = 0
+  SP.psd_solve.launches = 0
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  es, recs = EP.rollout(k2env, es, expert_and_replay, length=EPISODE,
+                        record_fn=obj_pos)
+  torch.cuda.synchronize()
+  dt2 = time.perf_counter() - t0
+  psd_launches = SP.psd_solve.launches
+  substeps = EPISODE * k2env.n_substeps
+  rate2 = (ENVS + 1) * EPISODE / dt2
+  print(f'[slice2] {EPISODE}-step expert episodes at B={ENVS} + the replay '
+        f'(B={ENVS + 1}): {dt2:.3f} s -> {rate2:.2f} env-steps/s (state '
+        f'only, beside phase 5 in its own process) on {card}; slice 1 in '
+        f'this run: {rate:.2f} env-steps/s (step + render, alone)',
+        flush=True)
+  print(f'[slice2] PSD kernel launches: {psd_launches} for {substeps} '
+        f'substeps; raster launches: {rk.raster_tiles.launches}', flush=True)
+  check(psd_launches == substeps,
+        'the PSD kernel did not run once per substep')
+  check(bool(torch.isfinite(es.phys.qpos).all()), 'non-finite qpos')
+  m = k2env.eval_metrics(es)
+  ts = m['task_success'][:ENVS]
+  succ = float(ts.mean())
+  print(f'[slice2] task_success {succ:.4f} ({int(ts.sum())} of {ENVS}), '
+        f'grasp_success {float(m["grasp_success"][:ENVS].mean()):.4f}, '
+        f'goal_dist mean {float(m["goal_dist"][:ENVS].mean()):.4f} median '
+        f'{float(m["goal_dist"][:ENVS].median()):.4f} m', flush=True)
+  check(succ >= MIN_SUCCESS, f'expert task success {succ:.4f} < '
+        f'{MIN_SUCCESS}')
+  # phase 8: the replay env's object positions after each step
+  trace = torch.cat([recs[ENVS, 1:], obj_pos(k2env, es, None, None)[ENVS:]])
+  drift = check_replay('fidelity2', fx, trace.cpu().numpy(),
+                       {k: v[ENVS] for k, v in m.items()}, dt2)
+  print(f'[fidelity2] drift {drift * 1000:.2f} mm (the JAX pallas path at '
+        'rolling=False: 11.8 mm on this fixture, JAX on the CPU)',
+        flush=True)
+  # phase 5's process; the K2 timing and the profile wait for it, so the
+  # card runs nothing else meanwhile
+  rc = child.wait()
+  check(rc == 0, f'phase 5 (the slice-1 replay) failed with exit code {rc}')
+  psd_ms = cuda_ms(lambda: SP.psd_solve(**ops), 20)
+  psd_plain_ms = cuda_ms(lambda: SP.psd_solve_reference(**ops), 3)
+  psd_bound = bound(*psd_work(ops))
+  print(f'[psd] kernel {psd_ms:.4f} ms, plain twin {psd_plain_ms:.4f} ms '
+        f'(CUDA events, median), bound {psd_bound[0]:.4f} ms by '
+        f'{psd_bound[1]} on {card}', flush=True)
+  profile_step(lambda: k2env.step(es, torch.zeros(ENVS + 1, 4, device=dev)),
+               f'slice 2, one control step, B={ENVS + 1}', card)
+  return {
+      'name': 'psd_solve', 'route': 'cuda',
+      'source': 'geeco_tpu_torch/csrc/psd_solve.cu',
+      'replaces': 'geeco_tpu/physics/solver_pallas.py:130',
+      'launches': psd_launches, 'max_abs_err': psd_err,
+      'ms': psd_ms, 'plain_ms': psd_plain_ms, 'bound_ms': psd_bound[0],
+      'bound_by': psd_bound[1], 'library_ms': None,
+  }
 
 
 if __name__ == '__main__':

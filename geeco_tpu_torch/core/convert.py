@@ -91,3 +91,13 @@ def env_state_from_reference(ref: Any, device=None):
       task_object=scalar(ref.task_object),
       goal_pos=_batched(_tensor(ref.goal_pos, device), 1),
       rgba=_batched(_tensor(ref.rgba, device), 2))
+
+
+def expert_state_from_reference(ref: Any, device=None):
+  """The port's ExpertState from a JAX ExpertState, per env or batched."""
+  from ..expert.policies import ExpertState
+  return ExpertState(
+      phase=_batched(_tensor(ref.phase, device), 0),
+      target=_batched(_tensor(ref.target, device), 1),
+      aux=_batched(_tensor(ref.aux, device), 1),
+      count=_batched(_tensor(ref.count, device), 0))

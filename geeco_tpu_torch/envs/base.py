@@ -20,9 +20,19 @@ Behavioural contract (as the JAX package, after the reference gym envs):
   * setup: slides (0.405, 0.48, 0); mocap to grip + (-0.498, 0.005,
     -0.431+0.2); settle ``settle_steps`` control steps
 
+Options: ``solver_method`` ('psd', the default, or 'pallas': the PSD
+iteration as one fused kernel launch per substep; at ngrp=6, i.e. with the
+rolling rows that ``rolling='auto'`` emits on every GEECO scene, 'pallas'
+runs the 'psd' iteration, as in the JAX package), ``rolling`` ('auto',
+True or False; ``rolling=False`` with ``solver_method='pallas'`` is the
+configuration that runs the fused kernel) and ``contact_select_k``.
+``device`` defaults to the card: without one, construction raises unless
+``device='cpu'`` is passed.
+
 Not ported yet: ``render_from_qpos``, the texture override of ``render``,
-and the mesh-scene solver defaults (psd_block with quota contact
-selection).
+the mesh-scene solver defaults (psd_block with quota contact selection),
+and the options ``hysteresis``, ``contact_select``, ``mass_inverse``,
+``start_sphere_r``, ``renderer_kwargs`` and the TPU unroll levers.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from ..core import mjcf
 from ..core.model import (Kin, State, get_joint_qpos, make_state,
                           set_joint_qpos)
 from ..physics import kinematics as K
+from ..physics.solver import METHODS
 from ..physics.step import Stepper, build_stepper
 from ..render.rasterizer import Renderer, build_renderer
 from . import spawn
@@ -155,21 +166,34 @@ class GeecoEnv:
   def __init__(self, shapes: str = 'pad2-cube2', frame_res=(256, 256),
                asset_root: str = ASSET_ROOT, n_substeps: int = 20,
                settle_steps: int = 10, solver_iterations: int = 60,
-               collide_every: int = 1, device: str | torch.device = 'cpu'):
-    self.device = torch.device(device)
+               solver_method: Optional[str] = None,
+               contact_select_k: Optional[int] = None,
+               collide_every: int = 1, rolling: str | bool = 'auto',
+               device: str | torch.device | None = None):
+    if not (rolling == 'auto' or isinstance(rolling, bool)):
+      # any other string would be truthy downstream: rolling='off' would
+      # silently turn the rolling rows ON
+      raise ValueError(f"rolling must be 'auto', True or False; "
+                       f'got {rolling!r}')
+    if solver_method is not None and solver_method not in METHODS:
+      raise NotImplementedError(f'solver_method {solver_method!r} is not '
+                                f'ported (ported: {", ".join(METHODS)})')
+    self.device = torch.device('cuda' if device is None else device)
     if self.device.type == 'cuda' and not torch.cuda.is_available():
-      raise RuntimeError(f'device={device!r} requested but CUDA is not '
-                         'available')
+      raise RuntimeError(f'device {str(self.device)!r} requested but CUDA '
+                         "is not available (pass device='cpu' to run on the "
+                         'CPU)')
     # physics is strict float32: no TF32 in the batched matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
     self.shapes = shapes
     self.task = 'pushing' if shapes.startswith('push') else 'pickplace'
     xml = os.path.join(asset_root, 'envs', MODEL_XML[shapes])
     m, self.assets = mjcf.load_model(xml)
-    # the top-K active set must cover every penetrating row; clutter scenes
-    # add ~2 box manifolds of resting rows per extra free body
-    n_free = sum(1 for t in m.jnt_type if t == 0)  # FREE
-    contact_select_k = 128 + 16 * max(0, n_free - 4)
+    if contact_select_k is None:
+      # the top-K active set must cover every penetrating row; clutter
+      # scenes add ~2 box manifolds of resting rows per extra free body
+      n_free = sum(1 for t in m.jnt_type if t == 0)  # FREE
+      contact_select_k = 128 + 16 * max(0, n_free - 4)
     free_bodies = {m.jnt_bodyid[j] for j, t in enumerate(m.jnt_type)
                    if t == 0}
     if any(h >= 0 and m.geom_bodyid[g] in free_bodies
@@ -178,12 +202,14 @@ class GeecoEnv:
           f'{shapes}: mesh task objects need psd_block + quota selection, '
           'not ported yet')
     # static structure is compiled on the CPU, then moved to the device
-    stepper = build_stepper(m, contact_select_k=contact_select_k)
+    stepper = build_stepper(m, contact_select_k=contact_select_k,
+                            rolling=rolling)
     h, w = frame_res
     renderer = build_renderer(m, self.assets, width=w, height=h)
     self.model = m.to(self.device)
     self.stepper: Stepper = stepper._replace(model=self.model)
     self.renderer: Renderer = dataclasses.replace(renderer, model=self.model)
+    self.solver_method = 'psd' if solver_method is None else solver_method
     self.collide_every = collide_every
     self.n_substeps = n_substeps
     self.settle_steps = settle_steps
@@ -242,7 +268,8 @@ class GeecoEnv:
 
   def _step_phys(self, phys: State) -> State:
     return self.stepper.step(phys, self.n_substeps, self.solver_iterations,
-                             collide_every=self.collide_every)
+                             collide_every=self.collide_every,
+                             solver_method=self.solver_method)
 
   def _settle(self, phys: State) -> State:
     for _ in range(self.settle_steps):

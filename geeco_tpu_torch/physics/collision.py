@@ -2,9 +2,10 @@
 
 Counterpart of ``geeco_tpu/physics/collision.py`` for the pair kernels the
 box scenes use: plane-capsule, plane-box, capsule-box and box-box (with
-their segment/box helpers).  Any other type pair raises
-``NotImplementedError``, as the JAX dispatcher does for unknown pairs; the
-sphere, ellipsoid, cylinder and convex-hull kernels are not ported yet.
+their segment/box helpers), plus plane-sphere and sphere-box.  Any other
+type pair raises ``NotImplementedError``, as the JAX dispatcher does for
+unknown pairs; the ellipsoid, cylinder, sphere-sphere, sphere-capsule,
+capsule-capsule and convex-hull kernels are not ported yet.
 
 The JAX package writes each kernel for one pair and vmaps it; here every
 kernel takes tensors with leading (env, pair) axes written out:
@@ -121,6 +122,14 @@ def plane_box(p1, q1, s1, p2, q2, s2):
   return corners, normals, d
 
 
+def plane_sphere(p1, q1, s1, p2, q2, s2):
+  pp, n = _plane_frame(p1, q1)
+  r = s2[..., 0]
+  d = _dot(p2 - pp, n) - r
+  pos = p2 - (r + 0.5 * d)[..., None] * n
+  return pos[..., None, :], n[..., None, :], d[..., None]
+
+
 def _sphere_box_one(center, r, pbox, qbox, sbox):
   """Point of radius r vs box: (pos, n box->sphere, d); center [..., 3]."""
   Rb = gm.quat_to_mat(qbox)
@@ -141,6 +150,12 @@ def _sphere_box_one(center, r, pbox, qbox, sbox):
   n_world = torch.einsum('...ij,...j->...i', Rb, n_local)
   pos = center - n_world * (r + 0.5 * d)[..., None]
   return pos, n_world, d
+
+
+def sphere_box(p1, q1, s1, p2, q2, s2):
+  pos, n_box2sph, d = _sphere_box_one(p1, s1[..., 0], p2, q2, s2)
+  # normal must point geom1 (sphere) -> geom2 (box)
+  return pos[..., None, :], -n_box2sph[..., None, :], d[..., None]
 
 
 def capsule_box(p1, q1, s1, p2, q2, s2):
@@ -256,11 +271,16 @@ def box_box(p1, q1, s1, p2, q2, s2):
 
 
 def _kernel(t1: int, t2: int):
-  """(t1, t2) -> batched pair kernel; only the box-scene pairs are ported."""
+  """(t1, t2) -> batched pair kernel; only the box- and sphere-scene pairs
+  are ported."""
+  if (t1, t2) == (PLANE, SPHERE):
+    return plane_sphere
   if (t1, t2) == (PLANE, CAPSULE):
     return plane_capsule
   if (t1, t2) == (PLANE, BOX):
     return plane_box
+  if (t1, t2) == (SPHERE, BOX):
+    return sphere_box
   if (t1, t2) == (CAPSULE, BOX):
     return capsule_box
   if (t1, t2) == (BOX, BOX):

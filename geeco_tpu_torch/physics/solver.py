@@ -1,7 +1,7 @@
 """Constraint assembly + projected steepest-descent (PSD) contact solver.
 
-Counterpart of ``geeco_tpu/physics/solver.py``, ``method='psd'`` only, with
-a leading env axis B on every dynamic tensor.  MuJoCo-style soft
+Counterpart of ``geeco_tpu/physics/solver.py``, methods ``'psd'`` and
+``'pallas'``, with a leading env axis B on every dynamic tensor.  MuJoCo-style soft
 constraints (solref/solimp impedance, reference accelerations,
 R-regularisation) are solved in the dual (force) space with a diagonally
 preconditioned projected gradient; friction cones are elliptic.
@@ -12,9 +12,13 @@ Row layout (static per model):
   [nlim * 2]     joint-limit rows (lower, upper)
   [neq * 6]      weld rows (3 translation + 3 rotation)
 
-``constraint_static`` is host-side numpy, carried across.  The other
-methods of the JAX package (cg, bb, apgd, psd_block, bb_block, quota
-selection, the Pallas iterator) are not ported yet.
+``constraint_static`` is host-side numpy, carried across, with the JAX
+package's ``rolling`` option.  ``solve(method='pallas')`` runs the PSD
+iteration as one fused kernel per substep (``solver_pallas.psd_solve``)
+when the rows form 4 contact groups (ngrp=4, no rolling rows), and the
+plain ``'psd'`` iteration otherwise, as the JAX package does.  The other
+methods of the JAX package (cg, bb, apgd, psd_block, bb_block) and quota
+selection are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,6 +33,9 @@ from ..core.model import Model, State, make_state
 from . import collision as C
 from . import dynamics as D
 from . import kinematics as K
+from . import solver_pallas as SP
+
+METHODS = ('psd', 'pallas')
 
 
 class ConstraintStatic(NamedTuple):
@@ -82,13 +89,18 @@ def _dof_invweights(model: Model, anc_mask: np.ndarray) -> np.ndarray:
 
 
 def constraint_static(model: Model, anc_mask: np.ndarray,
-                      select_k: int = 128) -> ConstraintStatic:
+                      select_k: int = 128,
+                      rolling: str | bool = 'auto') -> ConstraintStatic:
+  """The static row layout.  ``rolling``: True forces the two rolling
+  groups (ngrp=6), False leaves them out (ngrp=4), 'auto' emits them only
+  where a condim-6 pair has a rolling coefficient above 1e-3 (MuJoCo's
+  default is 1e-4)."""
   b1, b2, fric, solref, solimp, condim = C.contact_params(model)
   ncon = len(b1)
   ncon_sel = min(ncon, select_k) if select_k else ncon
-  # rolling rows only where a condim-6 pair has a rolling coefficient above
-  # 1e-3 (MuJoCo's default is 1e-4): the JAX package's rolling='auto'
-  rolling = bool(ncon) and bool(np.any((condim >= 6) & (fric[:, 2] > 1e-3)))
+  if rolling == 'auto':
+    rolling = bool(ncon) and bool(
+        np.any((condim >= 6) & (fric[:, 2] > 1e-3)))
   ngrp = 6 if rolling else 4
   lim_dof, lim_qadr, lim_range, lim_solref, lim_solimp = [], [], [], [], []
   jnt_range = model.jnt_range.cpu().numpy()
@@ -201,6 +213,9 @@ def make_constraints(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
   mu_t = mu_tor = mu_roll = empty
   sel_idx = torch.zeros((B, 0), dtype=torch.int64, device=qvel.device)
   anc = model.const('anc_mask', anc_mask)
+  # the per-row weights depend on the row layout: one model may serve
+  # steppers with and without the rolling rows
+  invw_key = f'cs.invweight.ngrp{cs.ngrp}'
 
   def rowmv(Jr, v):                     # [B, n, nv] @ [B, nv] -> [B, n]
     return torch.einsum('zcv,zv->zc', Jr, v)
@@ -226,7 +241,7 @@ def make_constraints(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
         np.float32))[sel_idx]
     roll_on = model.const('cs.roll_on', (cs.con_condim >= 6).astype(
         np.float32))[sel_idx]
-    invw = model.const('cs.invweight', cs.invweight)
+    invw = model.const(invw_key, cs.invweight)
     inv_t = invw[:cs.ncon][sel_idx]
     inv_r = invw[3 * cs.ncon:4 * cs.ncon][sel_idx]
     mu_t = friction[..., 0]
@@ -281,7 +296,7 @@ def make_constraints(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
     solimp = model.const('cs.lim_solimp', cs.lim_solimp)
     solref = model.const('cs.lim_solref', cs.lim_solref)
     base = cs.ngrp * cs.ncon
-    lim_invw = model.const('cs.invweight', cs.invweight)[
+    lim_invw = model.const(invw_key, cs.invweight)[
         base:base + cs.nlim].expand(B, cs.nlim)
     for pos, Jr in (((qp - lo), e), ((hi - qp), -e)):
       d_l = impedance(solimp, torch.clamp(pos, max=0.0))
@@ -323,7 +338,7 @@ def make_constraints(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
     active_rows.append(torch.ones((B, 6), dtype=torch.bool,
                                   device=qvel.device))
     base = cs.ngrp * cs.ncon + 2 * cs.nlim + 6 * e_i
-    invw_rows.append(model.const('cs.invweight', cs.invweight)[
+    invw_rows.append(model.const(invw_key, cs.invweight)[
         base:base + 6].expand(B, 6))
 
   if not J_rows:
@@ -405,14 +420,24 @@ def _iterate(Aop, project, f0: torch.Tensor, b: torch.Tensor,
 
 def solve(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
           con: Constraints, warmstart: torch.Tensor | None,
-          iterations: int = 60):
+          iterations: int = 60, method: str = 'psd'):
   """Projected-gradient solve with weld-equality elimination.
 
   The weld rows couple to the 1e11-damped world slides and dominate the
   dual conditioning; they are solved exactly by Schur complement (they need
   no cone projection) and only the inequality rows are iterated.
-  Returns (f_full [B, ne], qacc [B, nv]).
+
+  ``method='psd'`` iterates in PyTorch, one small kernel per operation.
+  ``method='pallas'`` runs the whole iteration as one fused kernel launch
+  (``solver_pallas.psd_solve``: the CUDA kernel on the card, its plain twin
+  on the CPU), with the TPU kernel's operator form; it needs ngrp=4, and at
+  ngrp=6 (rolling rows) it runs the ``'psd'`` iteration, as in the JAX
+  package.  Returns (f_full [B, ne], qacc [B, nv]).
   """
+  if method not in METHODS:
+    raise NotImplementedError(f'solver method {method!r} is not ported '
+                              f'(ported: {", ".join(METHODS)})')
+  fused = method == 'pallas' and cs.ngrp == 4
   B, ne_sel = con.J.shape[0], con.J.shape[1]
   if ne_sel == 0:
     return smooth.qacc_smooth.new_zeros((B, cs.ne)), smooth.qacc_smooth
@@ -466,6 +491,13 @@ def solve(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
   def mv(A, v):                                    # [B, m, n] @ [B, n]
     return torch.bmm(A, v[..., None])[..., 0]
 
+  def fused_solve(J, X_, A_IE, EEinv, R_, b_, precond, f0_):
+    """The iteration in one kernel launch (the plain twin on the CPU)."""
+    ops = (J, X_, A_IE, EEinv, R_, b_, precond, f0_, con.mu_t, con.mu_tor,
+           con_active, lim_active)
+    return SP.psd_solve(*(t.contiguous() for t in ops), Kc, cs.nlim,
+                        iterations)
+
   if nE:
     J_I, J_E = con.J[:, :nI], con.J[:, eq_lo:eq_hi]
     X_I, X_E = X[:, :, :nI], X[:, :, eq_lo:eq_hi]
@@ -485,7 +517,11 @@ def solve(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
       u = mv(X_I, f)
       return mv(J_I, u) + R_I * f - mv(A_IE, mv(A_EE_inv, mv(J_E, u)))
 
-    fI = _iterate(A_red, project, f0[:, :nI], b_red, precond, iterations)
+    if fused:
+      fI = fused_solve(J_I, X_I, A_IE, A_EE_inv, R_I, b_red, precond,
+                       f0[:, :nI])
+    else:
+      fI = _iterate(A_red, project, f0[:, :nI], b_red, precond, iterations)
     fE = -mv(A_EE_inv, b_E + mv(A_IE.transpose(1, 2), fI))
     f = torch.cat([fI, fE], 1)
   else:
@@ -494,7 +530,11 @@ def solve(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
     def A_full(f):
       return mv(con.J, mv(X, f)) + R * f
 
-    f = _iterate(A_full, project, f0, b, precond, iterations)
+    if fused:
+      f = fused_solve(con.J, X, X.new_zeros((B, ne_sel, 0)),
+                      X.new_zeros((B, 0, 0)), R, b, precond, f0)
+    else:
+      f = _iterate(A_full, project, f0, b, precond, iterations)
 
   qacc = smooth.qacc_smooth + mv(X, f)
   return scatter_forces(cs, con, f), qacc

@@ -3,7 +3,9 @@
 Counterpart of ``geeco_tpu/physics/step.py``.  ``build_stepper(model)``
 precomputes the static structure; ``Stepper.substep`` and ``Stepper.step``
 advance B envs at once (the JAX package vmaps and scans; here the env axis
-is written out and the substeps are a Python loop).
+is written out and the substeps are a Python loop).  ``solver_method``
+('psd' or 'pallas') is threaded to ``solver.solve``; ``hysteresis``,
+quota contact selection and ``mass_inverse`` are not ported.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ class Stepper(NamedTuple):
     return K.fk(self.model, state)
 
   def _substep_c(self, state: State, solver_iterations: int,
-                 contacts: C.Contacts | None
+                 solver_method: str, contacts: C.Contacts | None
                  ) -> tuple[State, C.Contacts]:
     model = self.model
     dt = model.opt.timestep
@@ -39,17 +41,19 @@ class Stepper(NamedTuple):
     con = S.make_constraints(model, self.cs, smooth, contacts, state,
                              self.anc_mask)
     f, qacc = S.solve(model, self.cs, smooth, con, state.efc_force,
-                      iterations=solver_iterations)
+                      iterations=solver_iterations, method=solver_method)
     qvel = state.qvel + dt * qacc
     qpos = K.integrate_qpos(model, state.qpos, qvel, dt)
     return state.replace(qpos=qpos, qvel=qvel, time=state.time + dt,
                          efc_force=f), contacts
 
-  def substep(self, state: State, solver_iterations: int = 60) -> State:
-    return self._substep_c(state, solver_iterations, None)[0]
+  def substep(self, state: State, solver_iterations: int = 60,
+              solver_method: str = 'psd') -> State:
+    return self._substep_c(state, solver_iterations, solver_method, None)[0]
 
   def step(self, state: State, n_substeps: int = 20,
-           solver_iterations: int = 60, collide_every: int = 1) -> State:
+           solver_iterations: int = 60, collide_every: int = 1,
+           solver_method: str = 'psd') -> State:
     """n_substeps of physics.
 
     ``collide_every=k`` runs narrowphase collision once per k substeps and
@@ -65,7 +69,8 @@ class Stepper(NamedTuple):
     for i in range(n_substeps):
       if i % k == 0:
         contacts = None
-      state, contacts = self._substep_c(state, solver_iterations, contacts)
+      state, contacts = self._substep_c(state, solver_iterations,
+                                        solver_method, contacts)
     return state
 
   def init_state(self, state: State) -> State:
@@ -74,7 +79,9 @@ class Stepper(NamedTuple):
         (state.qpos.shape[0], self.ne)))
 
 
-def build_stepper(model: Model, contact_select_k: int = 128) -> Stepper:
+def build_stepper(model: Model, contact_select_k: int = 128,
+                  rolling: str | bool = 'auto') -> Stepper:
   anc_mask = K.ancestor_mask(model)
-  cs = S.constraint_static(model, anc_mask, select_k=contact_select_k)
+  cs = S.constraint_static(model, anc_mask, select_k=contact_select_k,
+                           rolling=rolling)
   return Stepper(model=model, anc_mask=anc_mask, cs=cs, ne=cs.ne)

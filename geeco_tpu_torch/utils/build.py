@@ -1,10 +1,13 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 At first use, every ``*.cu`` under ``geeco_tpu_torch/csrc/`` is compiled for
-Hopper into one shared library with a plain C interface::
+Hopper, one nvcc per source, all started together::
 
   nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false -std=c++17 \
-       -shared -Xcompiler -fPIC -o build/kernels/libgeeco_kernels_<hash>.so
+       -Xptxas=-v -Xcompiler -fPIC -c -o <source>.o <source>.cu
+
+and the objects are linked into one shared library with a plain C
+interface, ``build/kernels/libgeeco_kernels_<hash>.so`` (``nvcc -shared``).
 
 ``build/`` sits at the root of the checkout and is listed in .gitignore.
 The file name carries a hash of the sources and flags, so an edited source
@@ -28,10 +31,13 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), 'build', 'kernels')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
-              '--fmad=false', '-std=c++17', '-shared', '-Xcompiler', '-fPIC')
+              '--fmad=false', '-std=c++17', '-Xptxas=-v', '-Xcompiler',
+              '-fPIC')
 
-# seconds the last build took in this process (0.0 when it was cached)
+# seconds the last build took in this process (0.0 when it was cached),
+# and what nvcc printed (ptxas's register and shared-memory report)
 last_build_seconds = 0.0
+last_build_log = ''
 
 
 def _nvcc() -> str:
@@ -63,27 +69,42 @@ def library_path() -> str:
 
 def build() -> str:
   """Compile the kernels if this exact build is not on disk; its path."""
-  global last_build_seconds
+  global last_build_seconds, last_build_log
   out = library_path()
   if os.path.exists(out):
     last_build_seconds = 0.0
     return out
   os.makedirs(BUILD_DIR, exist_ok=True)
   t0 = time.perf_counter()
-  fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-  os.close(fd)
-  cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, *_sources()]
-  try:
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-      raise RuntimeError(f'nvcc failed ({proc.returncode}): {" ".join(cmd)}'
-                         f'\n{proc.stdout}\n{proc.stderr}')
-    os.replace(tmp, out)
-  finally:
-    if os.path.exists(tmp):
-      os.remove(tmp)
+  nvcc = _nvcc()
+  log = []
+  with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    jobs = []
+    for src in _sources():
+      obj = os.path.join(tmp, os.path.basename(src) + '.o')
+      cmd = [nvcc, *NVCC_FLAGS, '-c', '-o', obj, src]
+      jobs.append((cmd, obj, subprocess.Popen(
+          cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    # wait for every compile before raising, so no nvcc outlives the call
+    done = [(cmd, proc, *proc.communicate()) for cmd, _, proc in jobs]
+    lib = os.path.join(tmp, 'lib.so')
+    link = [nvcc, *NVCC_FLAGS, '-shared', '-o', lib,
+            *(obj for _, obj, _ in jobs)]
+    for cmd, proc, stdout, stderr in done:
+      _check(cmd, proc.returncode, stdout, stderr, log)
+    proc = subprocess.run(link, capture_output=True, text=True)
+    _check(link, proc.returncode, proc.stdout, proc.stderr, log)
+    os.replace(lib, out)
   last_build_seconds = time.perf_counter() - t0
+  last_build_log = '\n'.join(log)
   return out
+
+
+def _check(cmd, returncode: int, stdout: str, stderr: str, log: list):
+  """Keep one nvcc's output in ``log``; raise with it if nvcc failed."""
+  log.append(f'$ {" ".join(cmd)}\n{stdout}{stderr}')
+  if returncode != 0:
+    raise RuntimeError(f'nvcc failed ({returncode}): {log[-1]}')
 
 
 @functools.lru_cache(maxsize=None)
@@ -94,6 +115,8 @@ def load_kernels() -> ctypes.CDLL:
   lib.raster_tiles_f32.argtypes = [vp, vp, vp, ci, ci, ci, ctypes.c_float,
                                    vp]
   lib.raster_tiles_f32.restype = ci
+  lib.psd_solve_f32.argtypes = [vp] * 13 + [ci] * 7 + [vp]
+  lib.psd_solve_f32.restype = ci
   lib.geeco_cuda_error_string.argtypes = [ci]
   lib.geeco_cuda_error_string.restype = ctypes.c_char_p
   return lib

@@ -38,7 +38,8 @@ N_STEPS = 2
 
 
 def _port_slice(fx, obj):
-  te = tmake_env('pad2-cube2', frame_res=(64, 64), settle_steps=2)
+  te = tmake_env('pad2-cube2', frame_res=(64, 64), settle_steps=2,
+                 device='cpu')
   tes = te.reset_to(TSpec(obj_qpos=torch.as_tensor(obj)[None],
                           mocap_qpos=torch.as_tensor(
                               fx['init_mocap_qpos'])[None],
@@ -179,3 +180,12 @@ def test_reset_random_places_objects(slice_run):
   assert set(es.task_goal.tolist()) <= {0, 1}
   np.testing.assert_array_equal(
       es.rgba[:, m.geom('object0')].numpy(), [[1, 0, 0, 1]] * 2)
+
+
+def test_make_env_defaults_to_the_card():
+  """With no ``device`` the env is built on the card; where there is none,
+  construction raises instead of running on the CPU."""
+  if torch.cuda.is_available():
+    pytest.skip('a CUDA device is present: the default builds there')
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    tmake_env('pad2-cube2')

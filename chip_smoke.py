@@ -13,36 +13,41 @@ Drives the port's two paths at production settings on the card:
            whose solve is the fused PSD kernel: the scripted pick-and-place
            expert's 100-step state-only episodes (expert.policies.rollout).
 
-Phases, in order; any failure exits non-zero:
+Phases; any failure exits non-zero:
 
   1. a CUDA device is required; print its name and power limit
   2. build the CUDA kernels from csrc/ (nvcc, sm_90a) and time the build
   3. the raster kernel against its plain PyTorch twin, on random planes at
-     the production shapes and on planes binned from real frames
+     the production shapes and on planes binned from real frames; the
+     kernel's time on the latter
   4. the slice: reset_random, then control steps of step + render, with
      sanity checks and the count of raster-kernel launches; env-steps/s;
-     one profiled control step (kernel launches, device time)
+     one profiled control step (kernel launches, device time); env 0's
+     frame against the CPU path's
   5. fidelity: replay the recorded MuJoCo pick episode
      (tests/fixtures/mujoco_pickplace_pad2cube2.npz) through reset_to + step
-     and require task success with the task object within 30 mm; this runs
-     in a second process (this script with --replay-only) beside phases
-     6-8, since both are host-bound and the card idles most of the time
+     and require task success with the task object within 30 mm
   6. the PSD kernel against its plain twin at B=64: on random operands at
      the real shapes (with and without weld rows), and on the operands of
      a real substep 5 control steps into the expert episode, where the
      substep through the kernel is also held against the substep through
-     the twin; the first substep after reset_random, where the solve is
-     unstable to float32 rounding, is reported beside the twin's own
-     change under reordered sums, not gated
+     the twin; on the first substep after reset_random, where the solve is
+     unstable to float32 rounding, the kernel, the twin and the twin with
+     its sums in other orders are each held against the float64 twin,
+     env by env
   7. slice 2: the expert's 100-step episodes at B=64, with the count of
      PSD-kernel launches (one per substep), env-steps/s and task success;
-     one profiled control step
-  8. fidelity of slice 2: the MuJoCo pick replay through the slice-2 env,
-     run as a 65th env in phase 7's batch (the step is host-bound: the
-     replay then costs no time of its own)
+     the PSD kernel's time; one profiled control step
+  8. fidelity of slice 2: the MuJoCo pick replay through the slice-2 env
+     at B=1
 
-The kernels are timed after phase 5's process has ended.  The line before
-the last two is a JSON object describing each kernel; then
+Phase 5 runs in a second process (this script with --replay-only) from
+the build on.  Meanwhile this process does what times nothing: the set-up
+of both slices, the kernel checks of phases 3 and 6, the CPU frame and
+phase 8.  The timed parts of phases 3, 4 and 7 wait for the replay to end
+and run alone.
+
+The line before the last two is a JSON object describing each kernel; then
 the card's name and power limit; the last line is {"ok": true, "device":
 {...}}.  Imports nothing of JAX.
 """
@@ -77,6 +82,9 @@ QVEL_TOL = dict(rtol=1e-3, atol=1e-4)
 EPISODE = 100           # control steps of an expert episode (run/sim.py:36)
 MIN_SUCCESS = 0.80      # expert task success over the B envs
 DRIFT_LIMIT = 0.03      # replay: task-object drift from the MuJoCo trace
+# PSD kernel at the reset substep: at most this share of envs where it is
+# > 2x farther from the float64 solve than every float32 twin
+WITNESS_MAX_FRAC = 0.125
 # the H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM bytes/s,
 # float32 operations/s outside the tensor cores
 HBM_RATE = 3.35e12
@@ -110,8 +118,7 @@ def cuda_ms(fn, repeats: int) -> float:
 
 
 def compare_raster(coeffs, tile, sky, rk, label):
-  """Kernel vs twin on the same coefficients; returns (max_abs_err, ms,
-  plain_ms)."""
+  """Kernel vs twin on the same coefficients; returns max_abs_err."""
   iz_k, c_k = rk.raster_tiles(coeffs, tile, sky)
   iz_r, c_r = rk.raster_tiles_reference(coeffs, tile, sky)
   torch.cuda.synchronize()
@@ -126,11 +133,7 @@ def compare_raster(coeffs, tile, sky, rk, label):
         f'{label} planes ({n_mism} pixels)')
   check(bool(torch.isfinite(iz_k).all()) and bool(torch.isfinite(c_k).all()),
         'raster kernel output is not finite')
-  ms = cuda_ms(lambda: rk.raster_tiles(coeffs, tile, sky), 20)
-  plain_ms = cuda_ms(lambda: rk.raster_tiles_reference(coeffs, tile, sky), 3)
-  print(f'[raster:{label}] kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms '
-        '(CUDA events, median)', flush=True)
-  return err, ms, plain_ms
+  return err
 
 
 def profile_step(fn, label, card, path=''):
@@ -182,27 +185,29 @@ def within(got, ref, rtol, atol, label):
   return float(diff.max()), max_rel
 
 
-def replay_spec(fx):
-  """The fixture's reset as a B=1 ResetSpec."""
+def replay(env, label):
+  """The recorded MuJoCo pick episode through reset_to + step at B=1: task
+  success and the task object within DRIFT_LIMIT.  Returns the drift (m)."""
   from geeco_tpu_torch.envs.base import ResetSpec
+  fx = np.load(FIXTURE)
   obj = fx['init_obj_qpos'].copy()
   obj[:, 2] -= 0.025   # reset_to re-adds the table-height adjust
-  return ResetSpec(obj_qpos=torch.as_tensor(obj)[None],
+  spec = ResetSpec(obj_qpos=torch.as_tensor(obj)[None],
                    mocap_qpos=torch.as_tensor(fx['init_mocap_qpos'])[None],
                    task_goal=torch.tensor([0]), task_object=torch.tensor([0]))
-
-
-def obj_adrs(env, fx):
-  return [env.model.jnt_qposadr[env.model.joint(str(j))]
+  t0 = time.perf_counter()
+  es = env.reset_to(spec)
+  adrs = [env.model.jnt_qposadr[env.model.joint(str(j))]
           for j in fx['obj_joint_names']]
-
-
-def check_replay(label, fx, trace, metrics, seconds):
-  """Task success and task-object drift of a replayed MuJoCo episode;
-  trace [T, n_obj, 3] after each step.  Returns the drift (m)."""
-  m = {k: float(v) for k, v in metrics.items()}
+  trace = []
+  for cmd in fx['cmds']:
+    es = env.step(es, torch.as_tensor(cmd)[None])
+    trace.append(torch.stack([es.phys.qpos[0, a:a + 3] for a in adrs]))
+  trace = torch.stack(trace).cpu().numpy()
+  m = {k: float(v[0]) for k, v in env.eval_metrics(es).items()}
   drift = np.linalg.norm(trace - fx['obj_pos_trace'], axis=-1).max(axis=0)
-  print(f'[{label}] {len(fx["cmds"])} replayed steps in {seconds:.1f} s: '
+  print(f'[{label}] {len(fx["cmds"])} replayed steps in '
+        f'{time.perf_counter() - t0:.1f} s (beside the other process): '
         f'task_success {m["task_success"]}, goal_dist {m["goal_dist"]:.4f} '
         f'(MuJoCo {float(fx["final_goal_dist"]):.4f}), task-object drift '
         f'{drift[0] * 1000:.2f} mm', flush=True)
@@ -214,32 +219,6 @@ def check_replay(label, fx, trace, metrics, seconds):
   return float(drift[0])
 
 
-def replay(env, label):
-  """The recorded MuJoCo pick episode through reset_to + step at B=1."""
-  fx = np.load(FIXTURE)
-  t0 = time.perf_counter()
-  es = env.reset_to(replay_spec(fx))
-  adrs = obj_adrs(env, fx)
-  trace = []
-  for cmd in fx['cmds']:
-    es = env.step(es, torch.as_tensor(cmd)[None])
-    trace.append(torch.stack([es.phys.qpos[0, a:a + 3] for a in adrs]))
-  trace = torch.stack(trace).cpu().numpy()
-  metrics = {k: v[0] for k, v in env.eval_metrics(es).items()}
-  return check_replay(label, fx, trace, metrics, time.perf_counter() - t0)
-
-
-def cat_env_states(a, b):
-  """Two batches of envs as one."""
-  cat = lambda x, y: torch.cat([x, y])
-  phys = a.phys.replace(**{
-      f.name: cat(getattr(a.phys, f.name), getattr(b.phys, f.name))
-      for f in dataclasses.fields(a.phys)})
-  return a.replace(phys=phys, **{
-      k: cat(getattr(a, k), getattr(b, k))
-      for k in ('ts', 'task_goal', 'task_object', 'goal_pos', 'rgba')})
-
-
 def capture_solve(env, es, SP):
   """The fused-solve operands of one substep of env from es."""
   with SP.capture() as calls:
@@ -248,22 +227,97 @@ def capture_solve(env, es, SP):
   return calls[0]
 
 
-def reversed_sums(ops):
-  """The same solve with the nv axis reversed: the same float32 math, its
-  sums over nv taken in another order."""
-  rev = torch.arange(ops['J'].shape[2] - 1, -1, -1, device=ops['J'].device)
-  return dict(ops, J=ops['J'][:, :, rev].contiguous(),
-              X=ops['X'][:, rev].contiguous())
+def reordered(ops, gen=None):
+  """The same solve with its contacts, limit rows and dofs in a random
+  order (with no `gen`, only the dofs, reversed): the same float32 math,
+  its sums taken in another order.  Returns the operands and the row order
+  (forces[:, rows] = solve(operands))."""
+  B, nI, nv = ops['J'].shape
+  K, nlim, dev = ops['K'], ops['nlim'], ops['J'].device
+  if gen is None:
+    pk = torch.arange(K, device=dev)
+    pl = torch.arange(2 * nlim, device=dev)
+    pv = torch.arange(nv - 1, -1, -1, device=dev)
+  else:
+    pk = torch.randperm(K, generator=gen, device=dev)
+    pl = torch.randperm(2 * nlim, generator=gen, device=dev)
+    pv = torch.randperm(nv, generator=gen, device=dev)
+  rows = torch.cat([pk + g * K for g in range(4)] + [
+      4 * K + pl, torch.arange(4 * K + 2 * nlim, nI, device=dev)])
+  out = dict(ops, J=ops['J'][:, rows][:, :, pv], X=ops['X'][:, pv][:, :, rows],
+             A_IE=ops['A_IE'][:, rows], mu_t=ops['mu_t'][:, pk],
+             mu_tor=ops['mu_tor'][:, pk], con_act=ops['con_act'][:, pk],
+             lim_act=ops['lim_act'][:, pl],
+             **{k: ops[k][:, rows] for k in ('R', 'b', 'precond', 'f0')})
+  return {k: v.contiguous() if isinstance(v, torch.Tensor) else v
+          for k, v in out.items()}, rows
 
 
-def report(label, got, ref):
-  """Print how far got is from ref against FORCE_TOL, without a gate."""
-  diff = (got - ref).abs()
-  bad = diff > FORCE_TOL['atol'] + FORCE_TOL['rtol'] * ref.abs()
-  print(f'[{label}] max_abs {float(diff.max()):.6g}; {int(bad.sum())} of '
-        f'{diff.numel()} values in {int(bad.any(1).sum())} of '
-        f'{diff.shape[0]} envs outside rtol={FORCE_TOL["rtol"]:g} '
-        f'atol={FORCE_TOL["atol"]:g} (not a gate)', flush=True)
+def rounding_witness(ops, SP, gen, orders=4):
+  """The kernel, the twin, and the twin with its sums in `orders` other
+  orders (the dofs reversed, then random orders), each against the float64
+  twin on the same operands, env by env.
+
+  Where the solve amplifies float32 rounding, every float32 solve is far
+  from the float64 one.  A kernel that computes the twin's function is one
+  more summation order: per env, its rank by distance among the float32
+  solves is spread evenly, and it is not far beyond all of them.  A fault
+  puts it last in most envs.  Returns a summary, printed."""
+  f64 = SP.psd_solve_reference(**{
+      k: v.double() if isinstance(v, torch.Tensor) else v
+      for k, v in ops.items()})
+  f_t = SP.psd_solve_reference(**ops)
+  solves = [SP.psd_solve(**ops), f_t]
+  for i in range(orders):
+    o, rows = reordered(ops, gen if i else None)
+    f = torch.empty_like(f_t)
+    f[:, rows] = SP.psd_solve_reference(**o)
+    solves.append(f)
+  tol = lambda f, ref: ((f - ref).abs() > FORCE_TOL['atol'] +
+                        FORCE_TOL['rtol'] * ref.abs()).any(1)
+  # [n_solves, B]: max abs distance from float64; outside FORCE_TOL of it
+  D = torch.stack([(f.double() - f64).abs().amax(1) for f in solves])
+  out64 = torch.stack([tol(f.double(), f64) for f in solves]).sum(1)
+  per_order = torch.stack([(f - f_t).abs().amax(1) for f in solves[2:]])
+  spread = per_order.amax(0)
+  k_vs_t = (solves[0] - f_t).abs().amax(1)
+  beyond = lambda d: (k_vs_t > 2 * d) & (k_vs_t > FORCE_TOL['atol'])
+  rank = (D[1:] < D[0]).sum(0)          # 0: the kernel is the closest
+  s = {
+      'max_abs_vs_f64': [float(d.max()) for d in D],
+      'median_env_vs_f64': [float(d.median()) for d in D],
+      'envs_outside_tol_vs_f64': [int(n) for n in out64],
+      'kernel_rank_hist': torch.bincount(rank, minlength=len(solves))
+                               .tolist(),
+      'envs_kernel_gt_2x_every_f32': int(
+          ((D[0] > 2 * D[1:].amax(0)) & (D[0] > FORCE_TOL['atol'])).sum()),
+      'envs_kernel_vs_twin_outside_tol': int(tol(solves[0], f_t).sum()),
+      'envs_kernel_vs_twin_gt_2x_spread': int(beyond(spread).sum()),
+      'max_ratio_kernel_vs_twin_over_spread': float(
+          (k_vs_t / spread.clamp(min=1e-12)).max()),
+      'envs_kernel_vs_twin_gt_2x_each_order': [
+          int(beyond(d).sum()) for d in per_order],
+      'max_ratio_kernel_vs_twin_over_each_order': [
+          float((k_vs_t / d.clamp(min=1e-12)).max()) for d in per_order],
+  }
+  print(f'[psd:reset] solves: kernel, twin, twin in {orders} other orders; '
+        f'per-env distance from the float64 twin (max, median env), envs '
+        f'outside rtol={FORCE_TOL["rtol"]:g} atol={FORCE_TOL["atol"]:g} of '
+        f'it: {s["max_abs_vs_f64"]}, {s["median_env_vs_f64"]}, '
+        f'{s["envs_outside_tol_vs_f64"]} of {ops["J"].shape[0]}', flush=True)
+  print(f'[psd:reset] kernel rank among the {len(solves)} float32 solves '
+        f'(0 = closest to float64), histogram over envs: '
+        f'{s["kernel_rank_hist"]}; envs where the kernel is > 2x farther than '
+        f'every other: {s["envs_kernel_gt_2x_every_f32"]}; kernel vs twin: '
+        f'{s["envs_kernel_vs_twin_outside_tol"]} envs outside the tolerance, '
+        f'{s["envs_kernel_vs_twin_gt_2x_spread"]} beyond 2x the twin\'s own '
+        f'spread over orders (largest ratio '
+        f'{s["max_ratio_kernel_vs_twin_over_spread"]:.3g}); beyond 2x one '
+        f'order\'s distance from the twin, order by order: '
+        f'{s["envs_kernel_vs_twin_gt_2x_each_order"]} envs (largest ratios '
+        f'{[round(r, 3) for r in s["max_ratio_kernel_vs_twin_over_each_order"]]})',
+        flush=True)
+  return s
 
 
 def random_psd_operands(B, K, nlim, nv, nE, gen):
@@ -346,10 +400,6 @@ def main():
   torch.backends.cudnn.allow_tf32 = False
 
   from geeco_tpu_torch.envs.base import make_env
-  from geeco_tpu_torch.expert import policies as EP
-  from geeco_tpu_torch.physics import solver_pallas as SP
-  from geeco_tpu_torch.render import raster_kernel as rk
-  from geeco_tpu_torch.render import rasterizer as R
   from geeco_tpu_torch.utils import build
   t_start = time.perf_counter()
 
@@ -368,39 +418,148 @@ def main():
     replay(env, 'fidelity')
     return
 
-  # ---- 3a. raster kernel vs twin on random planes at production shapes
+  # ---- 5. the slice-1 MuJoCo replay, in a second process from here on.
+  # Everything is host-bound and the card idles most of the time, so this
+  # process meanwhile does the work that times nothing (set-up, the kernel
+  # checks, phase 8's replay); the timed phases wait for the replay's end
+  # and run alone
+  child = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                            '--replay-only'])
+  try:
+    kernels = drive(card, child, args.profile)
+  finally:
+    if child.poll() is None:
+      child.kill()
+      child.wait()
+  print(f'[total] {time.perf_counter() - t_start:.1f} s after the device '
+        'check', flush=True)
+  print(json.dumps({'kernels': kernels}))
+  print(card)
+  print(json.dumps({'ok': True, 'device': {
+      'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+      'count': torch.cuda.device_count()}}))
+
+
+def drive(card, child, profile_path):
+  """Phases 3-4 and 6-8 beside phase 5's process `child`; the timed part
+  of phases 3, 4 and 7 after it has ended.  Returns the kernels line."""
+  from geeco_tpu_torch.envs.base import make_env
+  from geeco_tpu_torch.expert import policies as EP
+  from geeco_tpu_torch.physics import solver_pallas as SP
+  from geeco_tpu_torch.render import raster_kernel as rk
+  from geeco_tpu_torch.render import rasterizer as R
   dev = torch.device('cuda')
   gen = torch.Generator(device=dev).manual_seed(0)
+
+  # ---- 3a. raster kernel vs twin on random planes at production shapes
   TS, K, n_tiles = 16, 192, 256
   sky = R._pack_sky((0.45, 0.86, 0.57))
   coeffs = R._coeff_planes(random_planes(ENVS, n_tiles, K, TS, gen),
                            TS, 2)
-  err_rand, _, _ = compare_raster(coeffs, TS, sky, rk, 'random')
+  raster_err = compare_raster(coeffs, TS, sky, rk, 'random')
 
-  # ---- 4. slice 1
+  # ---- 4a. slice 1: set-up
   t0 = time.perf_counter()
   env = make_env('pad2-cube2', device='cuda')
   env.setup()
-  torch.cuda.synchronize()
-  print(f'[slice] env built + setup settle in {time.perf_counter() - t0:.1f}'
-        ' s', flush=True)
-  t0 = time.perf_counter()
   es = env.reset_random(ENVS, torch.Generator(device=dev).manual_seed(1))
   torch.cuda.synchronize()
-  print(f'[slice] reset_random(B={ENVS}) in '
-        f'{time.perf_counter() - t0:.1f} s', flush=True)
+  print(f'[slice] env built, set up and reset_random(B={ENVS}) in '
+        f'{time.perf_counter() - t0:.1f} s (beside the replay process)',
+        flush=True)
 
   # ---- 3b. raster kernel vs twin on planes binned from these frames
   kin = env.kin(es)
   tp = R._project_and_shade(env.renderer, kin, es.rgba)
   coeffs = R._coeff_planes(R._bin_hierarchical(env.renderer, tp), TS, 2)
-  err_real, ms, plain_ms = compare_raster(coeffs, TS, sky, rk, 'frame')
+  raster_err = max(raster_err, compare_raster(coeffs, TS, sky, rk, 'frame'))
+
+  # env 0's frame rendered by the CPU path (the plain twin)
+  rgb, _ = env.render(es)
+  cpu_env = make_env('pad2-cube2', device='cpu')
+  kin0 = kin.replace(**{f.name: getattr(kin, f.name)[:1].cpu()
+                        for f in dataclasses.fields(kin)})
+  rgb_cpu, _ = cpu_env.renderer.render(kin0, es.rgba[:1].cpu())
+  diff = float((rgb_cpu[0] != rgb[0].cpu()).any(-1).float().mean())
+  print(f'[slice] frame 0, CUDA vs CPU path: {diff:.5f} of pixels differ '
+        f'(tolerance {CPU_FRAME_TOL:g})', flush=True)
+  check(diff <= CPU_FRAME_TOL, 'CUDA frame disagrees with the CPU path')
+  del cpu_env, kin, kin0, tp, rgb, rgb_cpu
+
+  # ---- 6. the PSD kernel against its twin, on real and random operands
+  t0 = time.perf_counter()
+  k2env = make_env('pad2-cube2', device='cuda', rolling=False,
+                   solver_method='pallas')
+  k2env.setup()
+  es2 = k2env.reset_random(ENVS, torch.Generator(device=dev).manual_seed(2))
+  torch.cuda.synchronize()
+  print(f'[psd] slice-2 env (rolling=False, pallas, ngrp='
+        f'{k2env.stepper.cs.ngrp}) built, set up and reset at B={ENVS} in '
+        f'{time.perf_counter() - t0:.1f} s (beside the replay process)',
+        flush=True)
+  # 6a. random well-posed operands at the real shapes, with and without
+  # the weld rows
+  psd_err = 0.0
+  for nE in (6, 0):
+    rnd = random_psd_operands(ENVS, 128, 9, 39, nE, gen)
+    e, _ = within(SP.psd_solve(**rnd), SP.psd_solve_reference(**rnd),
+                  label=f'psd:random forces, nE={nE}', **FORCE_TOL)
+    psd_err = max(psd_err, e)
+  # 6b. the first substep after reset_random, where the 60-iteration solve
+  # is unstable to float32 rounding: every float32 solve against float64
+  w = rounding_witness(capture_solve(k2env, es2, SP), SP, gen)
+  check(w['envs_kernel_gt_2x_every_f32'] <= ENVS * WITNESS_MAX_FRAC,
+        f'the PSD kernel is > 2x farther from the float64 solve than every '
+        f'float32 twin in {w["envs_kernel_gt_2x_every_f32"]} of {ENVS} envs')
+  # 6c. a substep of the expert episode after 5 control steps: the kernel
+  # against the twin on its operands, and the substep through each
+  es5, _ = EP.rollout(k2env, es2, EP.make_expert(k2env), length=5)
+  ops = capture_solve(k2env, es5, SP)
+  print(f'[psd] operands of one substep: B={ops["J"].shape[0]}, nI='
+        f'{ops["J"].shape[1]}, nv={ops["J"].shape[2]}, nE='
+        f'{ops["A_IE"].shape[2]}, K={ops["K"]}, nlim={ops["nlim"]}, '
+        f'{ops["iterations"]} iterations', flush=True)
+  f_k = SP.psd_solve(**ops)
+  check(bool(torch.isfinite(f_k).all()), 'PSD kernel forces not finite')
+  e, _ = within(f_k, SP.psd_solve_reference(**ops),
+                label='psd:episode forces', **FORCE_TOL)
+  psd_err = max(psd_err, e)
+  sub_k = k2env.stepper.substep(es5.phys, k2env.solver_iterations, 'pallas')
+  real = SP.psd_solve
+  SP.psd_solve = SP.psd_solve_reference   # this one substep through the twin
+  try:
+    sub_r = k2env.stepper.substep(es5.phys, k2env.solver_iterations,
+                                  'pallas')
+  finally:
+    SP.psd_solve = real
+  within(sub_k.qvel, sub_r.qvel, label='psd:episode substep qvel',
+         **QVEL_TOL)
+  del es5, sub_k, sub_r
+
+  # ---- 8. fidelity of slice 2: the MuJoCo pick replay at B=1
+  drift = replay(k2env, 'fidelity2')
+  print(f'[fidelity2] drift {drift * 1000:.2f} mm (the JAX pallas path at '
+        'rolling=False: 11.8 mm on this fixture, JAX on the CPU)',
+        flush=True)
+
+  # phase 5's process; everything below is timed and runs alone
+  rc = child.wait()
+  check(rc == 0, f'phase 5 (the slice-1 replay) failed with exit code {rc}')
+
+  # ---- 3c. the raster kernel's time on the frame planes
+  ms = cuda_ms(lambda: rk.raster_tiles(coeffs, TS, sky), 20)
+  plain_ms = cuda_ms(lambda: rk.raster_tiles_reference(coeffs, TS, sky), 3)
   B_, nt_, _, K_ = coeffs.shape
   raster_bound = bound(
       4 * (coeffs.numel() + 2 * B_ * nt_ * TS * TS),
       # per pixel and slot: 4 affine forms (2 mul + 2 add) and 4 compares
       20.0 * B_ * nt_ * TS * TS * K_)
+  print(f'[raster:frame] kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms '
+        f'(CUDA events, median), bound {raster_bound[0]:.4f} ms by '
+        f'{raster_bound[1]} on {card}', flush=True)
+  del coeffs
 
+  # ---- 4b. slice 1: control steps of step + render
   base = torch.tensor([0.1, 0.0, 0.2, 1.0], device=dev).expand(ENVS, 4)
   rk.raster_tiles.launches = 0
   SP.psd_solve.launches = 0
@@ -438,184 +597,62 @@ def main():
         'the plain psd iteration)', flush=True)
   check(launches == renders, 'the raster kernel did not run once per render')
   check(psd_launches_slice1 == 0, 'the PSD kernel ran on the ngrp=6 path')
-
-  # env 0's state rendered by the CPU path (the plain twin)
-  cpu_env = make_env('pad2-cube2', device='cpu')
-  kin = env.kin(es)
-  kin0 = kin.replace(**{f.name: getattr(kin, f.name)[:1].cpu()
-                        for f in dataclasses.fields(kin)})
-  rgb_cpu, _ = cpu_env.renderer.render(kin0, es.rgba[:1].cpu())
-  diff = float((rgb_cpu[0] != rgb[0].cpu()).any(-1).float().mean())
-  print(f'[slice] frame 0, CUDA vs CPU path: {diff:.5f} of pixels differ '
-        f'(tolerance {CPU_FRAME_TOL:g})', flush=True)
-  check(diff <= CPU_FRAME_TOL, 'CUDA frame disagrees with the CPU path')
-
   profile_step(lambda: env.render(env.step(es, base)),
                f'slice 1, one control step + render, B={ENVS}', card,
-               args.profile)
+               profile_path)
+  del env, es, rgb, depth, flat
 
-  # ---- 5. fidelity: the recorded MuJoCo pick episode, in a second
-  # process that runs while this one drives slice 2: both are host-bound
-  # and the card is idle most of the time, so the two overlap
-  del env, cpu_env, es, rgb, depth, coeffs
-  k1 = {
-      'name': 'raster_tiles', 'route': 'cuda',
-      'source': 'geeco_tpu_torch/csrc/raster_tiles.cu',
-      'replaces': 'geeco_tpu/render/rasterizer.py:778',
-      'launches': launches, 'max_abs_err': max(err_rand, err_real),
-      'ms': ms, 'plain_ms': plain_ms, 'bound_ms': raster_bound[0],
-      'bound_by': raster_bound[1], 'library_ms': None,
-  }
-  child = subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                            '--replay-only'])
-  try:
-    k2 = slice2(card, dev, gen, rate, child)
-  finally:
-    if child.poll() is None:
-      child.kill()
-      child.wait()
-  print(f'[total] {time.perf_counter() - t_start:.1f} s after the device '
-        'check', flush=True)
-  print(json.dumps({'kernels': [k1, k2]}))
-  print(card)
-  print(json.dumps({'ok': True, 'device': {
-      'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
-      'count': torch.cuda.device_count()}}))
-
-
-def slice2(card, dev, gen, rate, child):
-  """Phases 6-8 (slice 2), then the wait for phase 5's process; returns
-  the PSD kernel's entry of the kernels line."""
-  from geeco_tpu_torch.envs.base import make_env
-  from geeco_tpu_torch.expert import policies as EP
-  from geeco_tpu_torch.physics import solver_pallas as SP
-  from geeco_tpu_torch.render import raster_kernel as rk
-
-  # ---- 6. the PSD kernel against its twin, on real and random operands
-  t0 = time.perf_counter()
-  k2env = make_env('pad2-cube2', device='cuda', rolling=False,
-                   solver_method='pallas')
-  k2env.setup()
-  es = k2env.reset_random(ENVS, torch.Generator(device=dev).manual_seed(2))
-  torch.cuda.synchronize()
-  print(f'[psd] slice-2 env (rolling=False, pallas, ngrp='
-        f'{k2env.stepper.cs.ngrp}) built, set up and reset at B={ENVS} in '
-        f'{time.perf_counter() - t0:.1f} s', flush=True)
-  # 6a. random well-posed operands at the real shapes, with and without
-  # the weld rows
-  psd_err = 0.0
-  for nE in (6, 0):
-    rnd = random_psd_operands(ENVS, 128, 9, 39, nE, gen)
-    e, _ = within(SP.psd_solve(**rnd), SP.psd_solve_reference(**rnd),
-                  label=f'psd:random forces, nE={nE}', **FORCE_TOL)
-    psd_err = max(psd_err, e)
-  # 6b. the first substep after reset_random, where the 60-iteration solve
-  # is unstable to float32 rounding: shown beside the twin's own change
-  # when only the order of its sums changes (the nv axis reversed); no gate
-  ops = capture_solve(k2env, es, SP)
-  f_r = SP.psd_solve_reference(**ops)
-  report('psd:reset kernel vs twin', SP.psd_solve(**ops), f_r)
-  report('psd:reset twin, sums reordered, vs twin',
-         SP.psd_solve_reference(**reversed_sums(ops)), f_r)
-  # 6c. a substep of the expert episode after 5 control steps: the kernel
-  # against the twin on its operands, and the substep through each
-  es5, _ = EP.rollout(k2env, es, EP.make_expert(k2env), length=5)
-  ops = capture_solve(k2env, es5, SP)
-  print(f'[psd] operands of one substep: B={ops["J"].shape[0]}, nI='
-        f'{ops["J"].shape[1]}, nv={ops["J"].shape[2]}, nE='
-        f'{ops["A_IE"].shape[2]}, K={ops["K"]}, nlim={ops["nlim"]}, '
-        f'{ops["iterations"]} iterations', flush=True)
-  f_k = SP.psd_solve(**ops)
-  check(bool(torch.isfinite(f_k).all()), 'PSD kernel forces not finite')
-  e, _ = within(f_k, SP.psd_solve_reference(**ops),
-                label='psd:episode forces', **FORCE_TOL)
-  psd_err = max(psd_err, e)
-  sub_k = k2env.stepper.substep(es5.phys, k2env.solver_iterations, 'pallas')
-  real = SP.psd_solve
-  SP.psd_solve = SP.psd_solve_reference   # this one substep through the twin
-  try:
-    sub_r = k2env.stepper.substep(es5.phys, k2env.solver_iterations,
-                                  'pallas')
-  finally:
-    SP.psd_solve = real
-  within(sub_k.qvel, sub_r.qvel, label='psd:episode substep qvel',
-         **QVEL_TOL)
-  del es5, sub_k, sub_r
-
-  # ---- 7 + 8. slice 2: the expert's state-only episodes at B=64 and, as
-  # env 64 of the same batch, the recorded MuJoCo pick episode (phase 8):
-  # the step is host-bound, so one batch of 65 envs costs what one of 64
-  # does, and the replay needs no loop of its own
-  fx = np.load(FIXTURE)
-  es = cat_env_states(es, k2env.reset_to(replay_spec(fx)))
-  cmds = torch.as_tensor(fx['cmds'], device=dev)
-  adrs = torch.as_tensor(obj_adrs(k2env, fx), device=dev)
-  expert = EP.make_expert(k2env)
-
-  def expert_and_replay(e, xs):
-    action, xs = expert(e, xs)
-    return torch.cat([action[:ENVS], cmds[e.ts[ENVS:]]]), xs
-
-  def obj_pos(env, e, action, xs, textures=None):
-    return e.phys.qpos[:, adrs[:, None] + torch.arange(3, device=dev)]
-
+  # ---- 7. slice 2: the expert's state-only episodes at B=64
   rk.raster_tiles.launches = 0
   SP.psd_solve.launches = 0
   torch.cuda.synchronize()
   t0 = time.perf_counter()
-  es, recs = EP.rollout(k2env, es, expert_and_replay, length=EPISODE,
-                        record_fn=obj_pos)
+  es2, _ = EP.rollout(k2env, es2, EP.make_expert(k2env), length=EPISODE)
   torch.cuda.synchronize()
   dt2 = time.perf_counter() - t0
   psd_launches = SP.psd_solve.launches
   substeps = EPISODE * k2env.n_substeps
-  rate2 = (ENVS + 1) * EPISODE / dt2
-  print(f'[slice2] {EPISODE}-step expert episodes at B={ENVS} + the replay '
-        f'(B={ENVS + 1}): {dt2:.3f} s -> {rate2:.2f} env-steps/s (state '
-        f'only, beside phase 5 in its own process) on {card}; slice 1 in '
-        f'this run: {rate:.2f} env-steps/s (step + render, alone)',
-        flush=True)
+  print(f'[slice2] {EPISODE}-step expert episodes at B={ENVS}: {dt2:.3f} s '
+        f'-> {ENVS * EPISODE / dt2:.2f} env-steps/s (state only) on '
+        f'{card}; slice 1 in this run: {rate:.2f} env-steps/s (step + '
+        'render)', flush=True)
   print(f'[slice2] PSD kernel launches: {psd_launches} for {substeps} '
         f'substeps; raster launches: {rk.raster_tiles.launches}', flush=True)
   check(psd_launches == substeps,
         'the PSD kernel did not run once per substep')
-  check(bool(torch.isfinite(es.phys.qpos).all()), 'non-finite qpos')
-  m = k2env.eval_metrics(es)
-  ts = m['task_success'][:ENVS]
-  succ = float(ts.mean())
-  print(f'[slice2] task_success {succ:.4f} ({int(ts.sum())} of {ENVS}), '
-        f'grasp_success {float(m["grasp_success"][:ENVS].mean()):.4f}, '
-        f'goal_dist mean {float(m["goal_dist"][:ENVS].mean()):.4f} median '
-        f'{float(m["goal_dist"][:ENVS].median()):.4f} m', flush=True)
+  check(bool(torch.isfinite(es2.phys.qpos).all()), 'non-finite qpos')
+  m = k2env.eval_metrics(es2)
+  succ = float(m['task_success'].mean())
+  print(f'[slice2] task_success {succ:.4f} '
+        f'({int(m["task_success"].sum())} of {ENVS}), grasp_success '
+        f'{float(m["grasp_success"].mean()):.4f}, goal_dist mean '
+        f'{float(m["goal_dist"].mean()):.4f} median '
+        f'{float(m["goal_dist"].median()):.4f} m', flush=True)
   check(succ >= MIN_SUCCESS, f'expert task success {succ:.4f} < '
         f'{MIN_SUCCESS}')
-  # phase 8: the replay env's object positions after each step
-  trace = torch.cat([recs[ENVS, 1:], obj_pos(k2env, es, None, None)[ENVS:]])
-  drift = check_replay('fidelity2', fx, trace.cpu().numpy(),
-                       {k: v[ENVS] for k, v in m.items()}, dt2)
-  print(f'[fidelity2] drift {drift * 1000:.2f} mm (the JAX pallas path at '
-        'rolling=False: 11.8 mm on this fixture, JAX on the CPU)',
-        flush=True)
-  # phase 5's process; the K2 timing and the profile wait for it, so the
-  # card runs nothing else meanwhile
-  rc = child.wait()
-  check(rc == 0, f'phase 5 (the slice-1 replay) failed with exit code {rc}')
   psd_ms = cuda_ms(lambda: SP.psd_solve(**ops), 20)
   psd_plain_ms = cuda_ms(lambda: SP.psd_solve_reference(**ops), 3)
   psd_bound = bound(*psd_work(ops))
   print(f'[psd] kernel {psd_ms:.4f} ms, plain twin {psd_plain_ms:.4f} ms '
         f'(CUDA events, median), bound {psd_bound[0]:.4f} ms by '
         f'{psd_bound[1]} on {card}', flush=True)
-  profile_step(lambda: k2env.step(es, torch.zeros(ENVS + 1, 4, device=dev)),
-               f'slice 2, one control step, B={ENVS + 1}', card)
-  return {
+  profile_step(lambda: k2env.step(es2, torch.zeros(ENVS, 4, device=dev)),
+               f'slice 2, one control step, B={ENVS}', card)
+  return [{
+      'name': 'raster_tiles', 'route': 'cuda',
+      'source': 'geeco_tpu_torch/csrc/raster_tiles.cu',
+      'replaces': 'geeco_tpu/render/rasterizer.py:778',
+      'launches': launches, 'max_abs_err': raster_err,
+      'ms': ms, 'plain_ms': plain_ms, 'bound_ms': raster_bound[0],
+      'bound_by': raster_bound[1], 'library_ms': None,
+  }, {
       'name': 'psd_solve', 'route': 'cuda',
       'source': 'geeco_tpu_torch/csrc/psd_solve.cu',
       'replaces': 'geeco_tpu/physics/solver_pallas.py:130',
       'launches': psd_launches, 'max_abs_err': psd_err,
       'ms': psd_ms, 'plain_ms': psd_plain_ms, 'bound_ms': psd_bound[0],
       'bound_by': psd_bound[1], 'library_ms': None,
-  }
+  }]
 
 
 if __name__ == '__main__':

@@ -25,14 +25,15 @@ iteration as one fused kernel launch per substep; at ngrp=6, i.e. with the
 rolling rows that ``rolling='auto'`` emits on every GEECO scene, 'pallas'
 runs the 'psd' iteration, as in the JAX package), ``rolling`` ('auto',
 True or False; ``rolling=False`` with ``solver_method='pallas'`` is the
-configuration that runs the fused kernel) and ``contact_select_k``.
+configuration that runs the fused kernel).
 ``device`` defaults to the card: without one, construction raises unless
 ``device='cpu'`` is passed.
 
 Not ported yet: ``render_from_qpos``, the texture override of ``render``,
 the mesh-scene solver defaults (psd_block with quota contact selection),
-and the options ``hysteresis``, ``contact_select``, ``mass_inverse``,
-``start_sphere_r``, ``renderer_kwargs`` and the TPU unroll levers.
+and the options ``contact_select_k``, ``hysteresis``, ``contact_select``,
+``mass_inverse``, ``start_sphere_r``, ``renderer_kwargs`` and the TPU
+unroll levers.
 """
 
 from __future__ import annotations
@@ -167,7 +168,6 @@ class GeecoEnv:
                asset_root: str = ASSET_ROOT, n_substeps: int = 20,
                settle_steps: int = 10, solver_iterations: int = 60,
                solver_method: Optional[str] = None,
-               contact_select_k: Optional[int] = None,
                collide_every: int = 1, rolling: str | bool = 'auto',
                device: str | torch.device | None = None):
     if not (rolling == 'auto' or isinstance(rolling, bool)):
@@ -189,11 +189,10 @@ class GeecoEnv:
     self.task = 'pushing' if shapes.startswith('push') else 'pickplace'
     xml = os.path.join(asset_root, 'envs', MODEL_XML[shapes])
     m, self.assets = mjcf.load_model(xml)
-    if contact_select_k is None:
-      # the top-K active set must cover every penetrating row; clutter
-      # scenes add ~2 box manifolds of resting rows per extra free body
-      n_free = sum(1 for t in m.jnt_type if t == 0)  # FREE
-      contact_select_k = 128 + 16 * max(0, n_free - 4)
+    # the top-K active set must cover every penetrating row; clutter scenes
+    # add ~2 box manifolds of resting rows per extra free body
+    n_free = sum(1 for t in m.jnt_type if t == 0)  # FREE
+    contact_select_k = 128 + 16 * max(0, n_free - 4)
     free_bodies = {m.jnt_bodyid[j] for j, t in enumerate(m.jnt_type)
                    if t == 0}
     if any(h >= 0 and m.geom_bodyid[g] in free_bodies

@@ -77,34 +77,25 @@ def build() -> str:
   os.makedirs(BUILD_DIR, exist_ok=True)
   t0 = time.perf_counter()
   nvcc = _nvcc()
-  log = []
+  start = lambda *args: subprocess.Popen(
+      [nvcc, *NVCC_FLAGS, *args], stdout=subprocess.PIPE,
+      stderr=subprocess.STDOUT, text=True)
   with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-    jobs = []
-    for src in _sources():
-      obj = os.path.join(tmp, os.path.basename(src) + '.o')
-      cmd = [nvcc, *NVCC_FLAGS, '-c', '-o', obj, src]
-      jobs.append((cmd, obj, subprocess.Popen(
-          cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    # wait for every compile before raising, so no nvcc outlives the call
-    done = [(cmd, proc, *proc.communicate()) for cmd, _, proc in jobs]
+    srcs = _sources()
+    objs = [os.path.join(tmp, os.path.basename(s) + '.o') for s in srcs]
     lib = os.path.join(tmp, 'lib.so')
-    link = [nvcc, *NVCC_FLAGS, '-shared', '-o', lib,
-            *(obj for _, obj, _ in jobs)]
-    for cmd, proc, stdout, stderr in done:
-      _check(cmd, proc.returncode, stdout, stderr, log)
-    proc = subprocess.run(link, capture_output=True, text=True)
-    _check(link, proc.returncode, proc.stdout, proc.stderr, log)
+    procs = [start('-c', '-o', o, s) for o, s in zip(objs, srcs)]
+    logs = [p.communicate()[0] for p in procs]  # every compile ends first
+    if all(p.returncode == 0 for p in procs):
+      procs.append(start('-shared', '-o', lib, *objs))
+      logs.append(procs[-1].communicate()[0])
+    last_build_log = '\n'.join(f'$ {" ".join(p.args)}\n{log}'
+                                for p, log in zip(procs, logs))
+    if any(p.returncode for p in procs):
+      raise RuntimeError(f'nvcc failed:\n{last_build_log}')
     os.replace(lib, out)
   last_build_seconds = time.perf_counter() - t0
-  last_build_log = '\n'.join(log)
   return out
-
-
-def _check(cmd, returncode: int, stdout: str, stderr: str, log: list):
-  """Keep one nvcc's output in ``log``; raise with it if nvcc failed."""
-  log.append(f'$ {" ".join(cmd)}\n{stdout}{stderr}')
-  if returncode != 0:
-    raise RuntimeError(f'nvcc failed ({returncode}): {log[-1]}')
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (geeco_tpu_torch) on one NVIDIA GPU.
 
-  python3 chip_smoke.py [--profile OUT.txt]
+  python3 chip_smoke.py [--profile OUT.txt] [--psd-phases]
 
 Drives the port's two paths at production settings on the card:
 
@@ -18,17 +18,21 @@ Phases; any failure exits non-zero:
   1. a CUDA device is required; print its name and power limit
   2. build the CUDA kernels from csrc/ (nvcc, sm_90a) and time the build
   3. the raster kernel against its plain PyTorch twin, on random planes at
-     the production shapes and on planes binned from real frames; the
-     kernel's time on the latter
+     the production shapes (also with no slot valid, with every slot valid
+     and with a slot count that is no multiple of 4) and on planes binned
+     from real frames; how many slots per tile those frames fill, and how
+     many of them can touch the tile; the kernel's time on both
   4. the slice: reset_random, then control steps of step + render, with
      sanity checks and the count of raster-kernel launches; env-steps/s;
      one profiled control step (kernel launches, device time); env 0's
      frame against the CPU path's
-  5. fidelity: replay the recorded MuJoCo pick episode
-     (tests/fixtures/mujoco_pickplace_pad2cube2.npz) through reset_to + step
-     and require task success with the task object within 30 mm
-  6. the PSD kernel against its plain twin at B=64: on random operands at
-     the real shapes (with and without weld rows), and on the operands of
+  5. fidelity: replay the first 50 control steps of the recorded MuJoCo pick
+     episode (tests/fixtures/mujoco_pickplace_pad2cube2.npz) through
+     reset_to + step and require the task object within 30 mm
+  6. the PSD kernel against its plain twin: on random operands at the real
+     shapes (with and without weld rows) at B=64, 3 and 1 in clusters of 1,
+     2 and 4 blocks per env, at a larger scene's shapes, and at shapes that
+     stay in device memory; then at B=64 on the operands of
      a real substep 5 control steps into the expert episode, where the
      substep through the kernel is also held against the substep through
      the twin; on the first substep after reset_random, where the solve is
@@ -37,15 +41,17 @@ Phases; any failure exits non-zero:
      env by env
   7. slice 2: the expert's 100-step episodes at B=64, with the count of
      PSD-kernel launches (one per substep), env-steps/s and task success;
-     the PSD kernel's time; one profiled control step
-  8. fidelity of slice 2: the MuJoCo pick replay through the slice-2 env
-     at B=1
+     the PSD kernel's time, also per cluster size at B=64 and B=1; one
+     profiled control step
+  8. fidelity of slice 2: the whole MuJoCo pick replay through the slice-2
+     env at B=1, to task success with the task object within 30 mm
 
-Phase 5 runs in a second process (this script with --replay-only) from
-the build on.  Meanwhile this process does what times nothing: the set-up
-of both slices, the kernel checks of phases 3 and 6, the CPU frame and
-phase 8.  The timed parts of phases 3, 4 and 7 wait for the replay to end
-and run alone.
+Phases 5 and 8, the two replays at B=1, run in a process each (this script
+with --replay-only slice1 or slice2) from the build on: everything is
+host-bound and the card idles most of the time.  Meanwhile this process
+does what times nothing: the set-up of both slices, the kernel checks of
+phases 3 and 6 and the CPU frame.  The timed parts of phases 3, 4 and 7
+wait for both replays to end and run alone.
 
 The line before the last two is a JSON object describing each kernel; then
 the card's name and power limit; the last line is {"ok": true, "device":
@@ -82,11 +88,23 @@ QVEL_TOL = dict(rtol=1e-3, atol=1e-4)
 EPISODE = 100           # control steps of an expert episode (run/sim.py:36)
 MIN_SUCCESS = 0.80      # expert task success over the B envs
 DRIFT_LIMIT = 0.03      # replay: task-object drift from the MuJoCo trace
+# the slice-1 replay runs the first half of the 100-step episode (approach,
+# grasp, lift): at full depth it was the longest phase, and a whole run has
+# passed 1100 of its 1200 s on a slow host.  The slice-2 replay runs whole
+REPLAY1_STEPS = 50
 # PSD kernel at the reset substep: at most this share of envs where it is
 # > 2x farther from the float64 solve than every float32 twin
 WITNESS_MAX_FRAC = 0.125
 # the H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM bytes/s,
 # float32 operations/s outside the tensor cores
+# the PSD solve's shapes (nI, nv, nE, K, nlim) and the cluster sizes they
+# are run in (None: the plan's own at B=3): pad2-cube2 with and without weld
+# rows, then one shape for each other way through the kernel (phase 6a)
+PSD_BUILDS = (((530, 39, 6, 128, 9), (1, 2, 4)),
+              ((530, 39, 0, 128, 9), (1, 2, 4)),
+              ((274, 45, 6, 64, 9), (1,)),
+              ((786, 63, 6, 192, 9), (None,)),
+              ((1298, 87, 6, 320, 9), (None,)))
 HBM_RATE = 3.35e12
 FP32_RATE = 67e12
 
@@ -101,14 +119,32 @@ def check(cond: bool, msg: str):
     fail(msg)
 
 
-def cuda_ms(fn, repeats: int) -> float:
-  """Median milliseconds of fn() over `repeats` timed runs (CUDA events),
-  after one warm-up run."""
+def cuda_ms(fn, repeats: int, queued: bool = False) -> float:
+  """Milliseconds of one fn() on the device (CUDA events), after one
+  warm-up run: the median of `repeats` runs timed one by one, or, `queued`,
+  the mean of `repeats` runs enqueued back to back behind a spin kernel of
+  ~50 ms.  A launch through a Python wrapper costs the host ~0.1 ms; timed
+  one by one, a kernel shorter than that reads as the host's time, since
+  the device waits for the launch with the clock running.  Behind the spin
+  the host runs ahead and the device never waits."""
   fn()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  if queued:
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(repeats):
+      fn()
+    end.record()
+    host = time.perf_counter() - t0
+    end.synchronize()
+    check(host < 0.04, f'{repeats} launches took the host {host:.3f} s, '
+          'longer than the spin kernel they were to queue behind')
+    return start.elapsed_time(end) / repeats
   times = []
   for _ in range(repeats):
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
     start.record()
     fn()
     end.record()
@@ -134,6 +170,71 @@ def compare_raster(coeffs, tile, sky, rk, label):
   check(bool(torch.isfinite(iz_k).all()) and bool(torch.isfinite(c_k).all()),
         'raster kernel output is not finite')
   return err
+
+
+def slot_counts(coeffs, tile):
+  """Per tile [B, n_tiles]: the slots that are filled (C0 is not the empty
+  marker -1e30) and the slots that can touch the tile (no edge function
+  negative at all four corner pixels: what the kernel's cull keeps)."""
+  lo, hi = 0.5, tile - 0.5
+  missed = torch.zeros_like(coeffs[:, :, 0], dtype=torch.bool)
+  for e in range(3):
+    a, b, c = (coeffs[:, :, 3 * e + i] for i in range(3))
+    corners = [a * x + b * y + c < 0 for x in (lo, hi) for y in (lo, hi)]
+    missed |= corners[0] & corners[1] & corners[2] & corners[3]
+  return (coeffs[:, :, 2] > -1e29).sum(-1), (~missed).sum(-1)
+
+
+def raster_work(coeffs, tile, slots):
+  """(bytes, operations) of one raster launch that tests `slots` slots in
+  all against every pixel of their tile: the coefficients read once, both
+  buffers written once; per pixel and tested slot 4 affine forms (2
+  multiplies, 2 adds each) and 4 compares; per slot of the input the cull
+  (3 edges at 4 corners, 5 operations and a compare each)."""
+  B, n_tiles, _, K = coeffs.shape
+  npx = tile * tile
+  return (4 * (coeffs.numel() + 2 * B * n_tiles * npx),
+          20.0 * npx * slots + 72.0 * B * n_tiles * K)
+
+
+def describe_slots(coeffs, tile, label):
+  """Print the distribution of filled and of touching slots per tile."""
+  filled, live = slot_counts(coeffs, tile)
+  edges = torch.tensor([0, 1, 2, 4, 8, 16, 32, 64, 128, 10 ** 6],
+                       device=coeffs.device)
+  for name, n in (('filled', filled), ('touching', live)):
+    n = n.flatten()
+    hist = torch.histc(torch.bucketize(n, edges, right=True).float() - 1,
+                       bins=len(edges) - 1, min=0, max=len(edges) - 1)
+    q = torch.quantile(n.float(), torch.tensor([0.5, 0.9, 0.99],
+                                               device=n.device))
+    print(f'[raster:{label}] {name} slots per tile of {coeffs.shape[3]}: '
+          f'mean {float(n.float().mean()):.2f}, median {float(q[0]):.0f}, '
+          f'p90 {float(q[1]):.0f}, p99 {float(q[2]):.0f}, max {int(n.max())}; '
+          f'tiles with [0, 1, 2-3, 4-7, 8-15, 16-31, 32-63, 64-127, 128+] '
+          f'slots: {[int(h) for h in hist]}', flush=True)
+
+
+def time_raster(coeffs, tile, sky, rk, card, label):
+  """The raster kernel's and its twin's time on `coeffs`, with the bound
+  for the slots that can touch their tile, and beside it the bounds for the
+  filled slots and for all slots.  Returns (ms, plain_ms, bound)."""
+  ms = cuda_ms(lambda: rk.raster_tiles(coeffs, tile, sky), 30, queued=True)
+  plain_ms = cuda_ms(lambda: rk.raster_tiles_reference(coeffs, tile, sky), 3)
+  filled, live = (int(n.sum()) for n in slot_counts(coeffs, tile))
+  total = coeffs.shape[0] * coeffs.shape[1] * coeffs.shape[3]
+  b_live, b_filled, b_all = (bound(*raster_work(coeffs, tile, n))
+                             for n in (live, filled, total))
+  print(f'[raster:{label}] kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms '
+        f'(CUDA events: the kernel queued, the twin one by one); bound '
+        f'{b_live[0]:.4f} ms by {b_live[1]} '
+        f'counting the {live} slots that can touch their tile (of {filled} '
+        f'filled, {total} in all); counting every filled slot '
+        f'{b_filled[0]:.4f} ms by {b_filled[1]}, every slot {b_all[0]:.4f} '
+        f'ms by {b_all[1]}, on {card}', flush=True)
+  check(ms >= b_live[0], f'raster kernel time {ms} ms under its bound '
+        f'{b_live[0]} ms on {label} planes: the count is at fault')
+  return ms, plain_ms, b_live
 
 
 def profile_step(fn, label, card, path=''):
@@ -185,9 +286,11 @@ def within(got, ref, rtol, atol, label):
   return float(diff.max()), max_rel
 
 
-def replay(env, label):
+def replay(env, label, steps=None):
   """The recorded MuJoCo pick episode through reset_to + step at B=1: task
-  success and the task object within DRIFT_LIMIT.  Returns the drift (m)."""
+  success and the task object within DRIFT_LIMIT.  With `steps`, only that
+  many control steps of it, held to the drift limit alone (success shows
+  at the episode's end).  Returns the drift (m)."""
   from geeco_tpu_torch.envs.base import ResetSpec
   fx = np.load(FIXTURE)
   obj = fx['init_obj_qpos'].copy()
@@ -200,20 +303,22 @@ def replay(env, label):
   adrs = [env.model.jnt_qposadr[env.model.joint(str(j))]
           for j in fx['obj_joint_names']]
   trace = []
-  for cmd in fx['cmds']:
+  cmds = fx['cmds'][:steps]
+  for cmd in cmds:
     es = env.step(es, torch.as_tensor(cmd)[None])
     trace.append(torch.stack([es.phys.qpos[0, a:a + 3] for a in adrs]))
   trace = torch.stack(trace).cpu().numpy()
   m = {k: float(v[0]) for k, v in env.eval_metrics(es).items()}
-  drift = np.linalg.norm(trace - fx['obj_pos_trace'], axis=-1).max(axis=0)
-  print(f'[{label}] {len(fx["cmds"])} replayed steps in '
-        f'{time.perf_counter() - t0:.1f} s (beside the other process): '
+  drift = np.linalg.norm(trace - fx['obj_pos_trace'][:len(cmds)],
+                         axis=-1).max(axis=0)
+  print(f'[{label}] {len(cmds)} of {len(fx["cmds"])} steps replayed in '
+        f'{time.perf_counter() - t0:.1f} s (beside the other processes): '
         f'task_success {m["task_success"]}, goal_dist {m["goal_dist"]:.4f} '
         f'(MuJoCo {float(fx["final_goal_dist"]):.4f}), task-object drift '
         f'{drift[0] * 1000:.2f} mm', flush=True)
   check(bool(np.isfinite(trace).all()), f'{label}: non-finite replay trace')
-  check(m['task_success'] == 1.0, f'{label}: the replayed pick did not '
-        'succeed')
+  check(len(cmds) < len(fx['cmds']) or m['task_success'] == 1.0,
+        f'{label}: the replayed pick did not succeed')
   check(drift[0] < DRIFT_LIMIT, f'{label}: task-object drift '
         f'{drift[0]:.4f} m >= {DRIFT_LIMIT} m')
   return float(drift[0])
@@ -363,6 +468,44 @@ def psd_work(ops):
   return nbytes, float(B) * ops['iterations'] * per_iter
 
 
+def psd_phases(card):
+  """--psd-phases: the cycles thread 0 spends in each phase of one
+  iteration of the PSD kernel, per cluster size, at the pad2-cube2 shapes
+  (B=64, random operands).  Builds csrc/psd_solve.cu once more with
+  -DPSD_PROFILE, which makes the kernel write its counts instead of the
+  forces."""
+  import ctypes
+  from geeco_tpu_torch.physics import solver_pallas as SP
+  from geeco_tpu_torch.utils import build
+  gen = torch.Generator(device='cuda').manual_seed(0)
+  ops = random_psd_operands(ENVS, 128, 9, 39, 6, gen)
+  names = ['u,w of f', 'barrier', 'rows g,d', 'barrier', 'u,w of d',
+           'barrier', 'rows Ad, dots', 'barrier', 'alpha, project, barrier',
+           'loop head']
+  order = ('J', 'X', 'A_IE', 'EEinv', 'R', 'b', 'precond', 'f0', 'mu_t',
+           'mu_tor', 'con_act', 'lim_act')
+  specs = [SP.build_spec(ENVS, 530, 39, 6, 128, 9, C) for C in (1, 2, 4)]
+  libs = [build.psd_library(s, ('PSD_PROFILE=1',)) for s in specs]
+  build.build_all(libs)
+  for spec, (so, _) in zip(specs, libs):
+    lib = ctypes.CDLL(so)
+    lib.psd_solve_f32.argtypes = [ctypes.c_void_p] * 13 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    out = torch.zeros((ENVS, 530), device='cuda')
+    for _ in range(2):
+      err = lib.psd_solve_f32(
+          *(ctypes.c_void_p(ops[k].data_ptr()) for k in order),
+          ctypes.c_void_p(out.data_ptr()), ENVS, ops['iterations'],
+          ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+      check(err == 0, f'profile launch failed: {err}')
+      torch.cuda.synchronize()
+    cyc = (out[0, :len(names)] / ops['iterations']).tolist()
+    print(f'[psd:phases] {spec}, cycles per iteration, thread 0 of block 0, '
+          f'B={ENVS}: ' + ', '.join(
+              f'{n} {c:.0f}' for n, c in zip(names, cyc)) +
+          f'; sum {sum(cyc):.0f} on {card}', flush=True)
+
+
 def random_planes(B, n_tiles, K, tile, gen):
   """Random vertex planes [B, n_tiles, K] as _bin_hierarchical emits them."""
   dev = gen.device
@@ -381,9 +524,13 @@ def main():
   ap.add_argument('--profile', default='',
                   help='write the torch.profiler tables of one slice-1 '
                   'control step there')
-  ap.add_argument('--replay-only', action='store_true',
-                  help='phase 5 alone: the slice-1 MuJoCo replay (a full '
-                  'run starts this as its second process)')
+  ap.add_argument('--psd-phases', action='store_true',
+                  help='only build the PSD kernel with its phase counters '
+                  'and print the cycles of each phase per cluster size')
+  ap.add_argument('--replay-only', choices=('slice1', 'slice2'), default='',
+                  help='phase 5 or phase 8 alone: the MuJoCo replay through '
+                  'that slice\'s env (a full run starts both, a process '
+                  'each)')
   args = ap.parse_args()
 
   # ---- 1. the card
@@ -402,35 +549,58 @@ def main():
   from geeco_tpu_torch.envs.base import make_env
   from geeco_tpu_torch.utils import build
   t_start = time.perf_counter()
-
-  # ---- 2. build
-  t0 = time.perf_counter()
-  build.load_kernels()
-  print(f'[build] kernels ready in {time.perf_counter() - t0:.2f} s '
-        f'(nvcc {build.last_build_seconds:.2f} s) -> '
-        f'{os.path.relpath(build.library_path(), ROOT)}', flush=True)
-  for line in build.last_build_log.splitlines():
-    if 'registers' in line or 'smem' in line:
-      print(f'[build] {line.strip()}', flush=True)
-
-  if args.replay_only:
-    env = make_env('pad2-cube2', device='cuda')
-    replay(env, 'fidelity')
+  if args.psd_phases:
+    psd_phases(card)
     return
 
-  # ---- 5. the slice-1 MuJoCo replay, in a second process from here on.
-  # Everything is host-bound and the card idles most of the time, so this
+  # ---- 2. build: the rasterizer, and the PSD solve for every shape and
+  # cluster size this script runs, every nvcc started together
+  from geeco_tpu_torch.physics import solver_pallas as SP
+  t0 = time.perf_counter()
+  libs = [build.psd_library(SP.build_spec(3, *shape, cluster=C))
+          for shape, sizes in PSD_BUILDS for C in sizes]
+  build.build_all([build.raster_library(), *libs])
+  print(f'[build] {1 + len(dict(libs))} kernel libraries ready in '
+        f'{time.perf_counter() - t0:.2f} s (nvcc '
+        f'{build.last_build_seconds:.2f} s) -> '
+        f'{os.path.relpath(build.BUILD_DIR, ROOT)}', flush=True)
+  for line in build.last_build_log.splitlines():
+    if line.startswith('$'):
+      print('[build] ' + ' '.join(a for a in line.split()
+                                  if a.startswith('-DPSD') or
+                                  a.endswith('.cu')), flush=True)
+    if 'registers' in line or 'smem' in line or 'spill' in line:
+      print(f'[build] {line.strip()}', flush=True)
+  build.load_kernels()
+
+  if args.replay_only == 'slice1':
+    replay(make_env('pad2-cube2', device='cuda'), 'fidelity',
+           steps=REPLAY1_STEPS)
+    return
+  if args.replay_only == 'slice2':
+    drift = replay(make_env('pad2-cube2', device='cuda', rolling=False,
+                            solver_method='pallas'), 'fidelity2')
+    print(f'[fidelity2] drift {drift * 1000:.2f} mm through '
+          f'{SP.psd_solve.launches} PSD kernel launches (the JAX pallas '
+          'path at rolling=False: 11.8 mm on this fixture, JAX on the CPU)',
+          flush=True)
+    check(SP.psd_solve.launches > 0, 'the replay did not reach the PSD '
+          'kernel')
+    return
+
+  # ---- 5, 8. the two MuJoCo replays, a process each from here on; this
   # process meanwhile does the work that times nothing (set-up, the kernel
-  # checks, phase 8's replay); the timed phases wait for the replay's end
-  # and run alone
-  child = subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                            '--replay-only'])
+  # checks), and its timed phases wait for the replays' end and run alone
+  children = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                '--replay-only', which])
+              for which in ('slice1', 'slice2')]
   try:
-    kernels = drive(card, child, args.profile)
+    kernels = drive(card, children, args.profile)
   finally:
-    if child.poll() is None:
-      child.kill()
-      child.wait()
+    for child in children:
+      if child.poll() is None:
+        child.kill()
+        child.wait()
   print(f'[total] {time.perf_counter() - t_start:.1f} s after the device '
         'check', flush=True)
   print(json.dumps({'kernels': kernels}))
@@ -440,14 +610,16 @@ def main():
       'count': torch.cuda.device_count()}}))
 
 
-def drive(card, child, profile_path):
-  """Phases 3-4 and 6-8 beside phase 5's process `child`; the timed part
-  of phases 3, 4 and 7 after it has ended.  Returns the kernels line."""
+def drive(card, children, profile_path):
+  """Phases 3-4 and 6-7 beside the replays' processes `children` (phases 5
+  and 8); the timed part of phases 3, 4 and 7 after they have ended.
+  Returns the kernels line."""
   from geeco_tpu_torch.envs.base import make_env
   from geeco_tpu_torch.expert import policies as EP
   from geeco_tpu_torch.physics import solver_pallas as SP
   from geeco_tpu_torch.render import raster_kernel as rk
   from geeco_tpu_torch.render import rasterizer as R
+  from geeco_tpu_torch.utils import build
   dev = torch.device('cuda')
   gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -457,6 +629,15 @@ def drive(card, child, profile_path):
   coeffs = R._coeff_planes(random_planes(ENVS, n_tiles, K, TS, gen),
                            TS, 2)
   raster_err = compare_raster(coeffs, TS, sky, rk, 'random')
+  rnd_coeffs = coeffs
+  # no slot valid; every slot valid; a slot count that is no multiple of 4
+  for label, ok, K_ in (('none valid', 0.0, K), ('all valid', 1.0, K),
+                        ('K=50', None, 50)):
+    planes = random_planes(3, 7, K_, TS, gen)
+    if ok is not None:
+      planes[9] = torch.full_like(planes[9], ok)
+    raster_err = max(raster_err, compare_raster(
+        R._coeff_planes(planes, TS, 2), TS, sky, rk, label))
 
   # ---- 4a. slice 1: set-up
   t0 = time.perf_counter()
@@ -465,7 +646,7 @@ def drive(card, child, profile_path):
   es = env.reset_random(ENVS, torch.Generator(device=dev).manual_seed(1))
   torch.cuda.synchronize()
   print(f'[slice] env built, set up and reset_random(B={ENVS}) in '
-        f'{time.perf_counter() - t0:.1f} s (beside the replay process)',
+        f'{time.perf_counter() - t0:.1f} s (beside the replay processes)',
         flush=True)
 
   # ---- 3b. raster kernel vs twin on planes binned from these frames
@@ -473,6 +654,8 @@ def drive(card, child, profile_path):
   tp = R._project_and_shade(env.renderer, kin, es.rgba)
   coeffs = R._coeff_planes(R._bin_hierarchical(env.renderer, tp), TS, 2)
   raster_err = max(raster_err, compare_raster(coeffs, TS, sky, rk, 'frame'))
+  describe_slots(coeffs, TS, 'frame')
+  describe_slots(rnd_coeffs, TS, 'random')
 
   # env 0's frame rendered by the CPU path (the plain twin)
   rgb, _ = env.render(es)
@@ -495,16 +678,42 @@ def drive(card, child, profile_path):
   torch.cuda.synchronize()
   print(f'[psd] slice-2 env (rolling=False, pallas, ngrp='
         f'{k2env.stepper.cs.ngrp}) built, set up and reset at B={ENVS} in '
-        f'{time.perf_counter() - t0:.1f} s (beside the replay process)',
+        f'{time.perf_counter() - t0:.1f} s (beside the replay processes)',
         flush=True)
   # 6a. random well-posed operands at the real shapes, with and without
-  # the weld rows
+  # the weld rows, at three batch sizes, in every cluster size; the
+  # wrapper's own count of shared memory against the source's
   psd_err = 0.0
-  for nE in (6, 0):
-    rnd = random_psd_operands(ENVS, 128, 9, 39, nE, gen)
-    e, _ = within(SP.psd_solve(**rnd), SP.psd_solve_reference(**rnd),
-                  label=f'psd:random forces, nE={nE}', **FORCE_TOL)
-    psd_err = max(psd_err, e)
+  for B_ in (ENVS, 3, 1):
+    for nE in (6, 0):
+      rnd = random_psd_operands(B_, 128, 9, 39, nE, gen)
+      ref = SP.psd_solve_reference(**rnd)
+      for C in (None, 1, 2, 4):
+        lay = SP.plan(B_, 530, 39, nE, 128, C)
+        check(lay['resident'] and lay['jreg'] > 0,
+              f'pad2-cube2 shapes not resident with J in registers: {lay}')
+        lib = build.load_psd(SP.build_spec(B_, 530, 39, nE, 128, 9, C))
+        check(lay['smem'] == lib.psd_solve_smem_bytes(),
+              f'shared-memory count differs from the source: {lay}')
+        e, _ = within(SP.psd_solve(**rnd, cluster=C), ref,
+                      label=f'psd:random forces, B={B_}, nE={nE}, '
+                      f'cluster={C} -> {lay["cluster"]}', **FORCE_TOL)
+        psd_err = max(psd_err, e)
+  # other shapes, each one way through the kernel: J in shared memory, one
+  # block per env (staged by bulk copy); a larger scene (K=192 contacts,
+  # nv=63), resident only split over a cluster; shapes that are resident in
+  # no cluster of four, J and X left in device memory
+  for K_, nv_, C, want in (
+      (64, 45, 1, dict(cluster=1, resident=True, jreg=0)),
+      (192, 63, None, dict(cluster=2, resident=True, jreg=0)),
+      (320, 87, None, dict(cluster=1, resident=False, jreg=0))):
+    rnd = random_psd_operands(3, K_, 9, nv_, 6, gen)
+    lay = SP.plan(3, 4 * K_ + 18, nv_, 6, K_, C)
+    print(f'[psd] K={K_}, nv={nv_}: {lay}', flush=True)
+    check(all(lay[k] == v for k, v in want.items()),
+          f'unexpected plan at K={K_}, nv={nv_}: {lay}, expected {want}')
+    within(SP.psd_solve(**rnd, cluster=C), SP.psd_solve_reference(**rnd),
+           label=f'psd:random forces, K={K_}, nv={nv_}', **FORCE_TOL)
   # 6b. the first substep after reset_random, where the 60-iteration solve
   # is unstable to float32 rounding: every float32 solve against float64
   w = rounding_witness(capture_solve(k2env, es2, SP), SP, gen)
@@ -536,28 +745,17 @@ def drive(card, child, profile_path):
          **QVEL_TOL)
   del es5, sub_k, sub_r
 
-  # ---- 8. fidelity of slice 2: the MuJoCo pick replay at B=1
-  drift = replay(k2env, 'fidelity2')
-  print(f'[fidelity2] drift {drift * 1000:.2f} mm (the JAX pallas path at '
-        'rolling=False: 11.8 mm on this fixture, JAX on the CPU)',
-        flush=True)
+  # phases 5 and 8, the replays' processes; everything below is timed and
+  # runs alone
+  for child, which in zip(children, ('slice-1', 'slice-2')):
+    rc = child.wait()
+    check(rc == 0, f'the {which} replay failed with exit code {rc}')
 
-  # phase 5's process; everything below is timed and runs alone
-  rc = child.wait()
-  check(rc == 0, f'phase 5 (the slice-1 replay) failed with exit code {rc}')
-
-  # ---- 3c. the raster kernel's time on the frame planes
-  ms = cuda_ms(lambda: rk.raster_tiles(coeffs, TS, sky), 20)
-  plain_ms = cuda_ms(lambda: rk.raster_tiles_reference(coeffs, TS, sky), 3)
-  B_, nt_, _, K_ = coeffs.shape
-  raster_bound = bound(
-      4 * (coeffs.numel() + 2 * B_ * nt_ * TS * TS),
-      # per pixel and slot: 4 affine forms (2 mul + 2 add) and 4 compares
-      20.0 * B_ * nt_ * TS * TS * K_)
-  print(f'[raster:frame] kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms '
-        f'(CUDA events, median), bound {raster_bound[0]:.4f} ms by '
-        f'{raster_bound[1]} on {card}', flush=True)
-  del coeffs
+  # ---- 3c. the raster kernel's time on the frame planes and on the
+  # random ones
+  ms, plain_ms, raster_bound = time_raster(coeffs, TS, sky, rk, card, 'frame')
+  time_raster(rnd_coeffs, TS, sky, rk, card, 'random')
+  del coeffs, rnd_coeffs
 
   # ---- 4b. slice 1: control steps of step + render
   base = torch.tensor([0.1, 0.0, 0.2, 1.0], device=dev).expand(ENVS, 4)
@@ -630,12 +828,25 @@ def drive(card, child, profile_path):
         f'{float(m["goal_dist"].median()):.4f} m', flush=True)
   check(succ >= MIN_SUCCESS, f'expert task success {succ:.4f} < '
         f'{MIN_SUCCESS}')
-  psd_ms = cuda_ms(lambda: SP.psd_solve(**ops), 20)
+  psd_ms = cuda_ms(lambda: SP.psd_solve(**ops), 30, queued=True)
   psd_plain_ms = cuda_ms(lambda: SP.psd_solve_reference(**ops), 3)
   psd_bound = bound(*psd_work(ops))
-  print(f'[psd] kernel {psd_ms:.4f} ms, plain twin {psd_plain_ms:.4f} ms '
-        f'(CUDA events, median), bound {psd_bound[0]:.4f} ms by '
-        f'{psd_bound[1]} on {card}', flush=True)
+  lay = SP.plan(*ops['J'].shape, ops['A_IE'].shape[2], ops['K'])
+  print(f'[psd] kernel {psd_ms:.4f} ms ({lay}), plain twin '
+        f'{psd_plain_ms:.4f} ms (CUDA events: the kernel queued, the twin '
+        f'one by one), bound '
+        f'{psd_bound[0]:.4f} ms by {psd_bound[1]} on {card}', flush=True)
+  check(psd_ms >= psd_bound[0], 'PSD kernel time under its bound')
+  # per cluster size, on the same substep's operands (B=1: env 0's)
+  ops1 = {k: v[:1].contiguous() if isinstance(v, torch.Tensor) else v
+          for k, v in ops.items()}
+  for label, o in ((f'B={ENVS}', ops), ('B=1', ops1)):
+    per_c = {C: cuda_ms(lambda: SP.psd_solve(**o, cluster=C), 30, queued=True)
+             for C in (1, 2, 4, 4, 2, 1)}
+    print(f'[psd] {label}, kernel ms per cluster size (second of two '
+          f'turns): {per_c}; the plan takes '
+          f'{SP.plan(*o["J"].shape, o["A_IE"].shape[2], o["K"])["cluster"]} '
+          f'on {card}', flush=True)
   profile_step(lambda: k2env.step(es2, torch.zeros(ENVS, 4, device=dev)),
                f'slice 2, one control step, B={ENVS}', card)
   return [{

@@ -33,6 +33,38 @@ kernel (``csrc/psd_solve.cu``) for tensors on the card, for every batch
 size, and runs the twin ``psd_solve_reference`` for tensors on the CPU; any
 other device, a non-float32 or a non-contiguous operand raises.  Nothing
 falls back.
+
+What bounds the kernel on an H100, and its design.  The solve is a chain of
+2*iterations dependent operator applications per env, each a small
+matrix-vector product whose result every row needs: the instructions a warp
+runs between two barriers and, for ``X v``, one SM's shared-memory
+bandwidth bind, not device memory nor the arithmetic rate.  So the kernel
+
+* is compiled per shape (``utils/build.py::load_psd``: the shapes and the
+  launch plan are ``-DPSD_*`` constants; nvcc runs at a shape's first
+  solve, a few seconds, and the library is kept);
+* stages every operand on the SM once per launch: J's rows in registers,
+  one row per thread, where nv <= 40 and the rows fit one block's threads,
+  else in shared memory (by a bulk asynchronous copy where one block holds
+  an env's J); X, A_IEᵀ, EEinv and the row vectors in shared memory, and
+  each warp's rows of X in its registers too where the block is small
+  enough to leave them;
+* runs one thread per output row for ``J u - A_IE z + R v`` with explicit
+  fused multiply-adds, one warp per output of ``u = X v, w = A_IEᵀ v``,
+  and five barriers an iteration;
+* can split one env's rows over a thread-block cluster of C in {1, 2, 4}
+  blocks: each block owns a share of the contacts in all four row groups,
+  so the cone projection stays local, and the partial ``u, w`` and the two
+  dot products cross through distributed shared memory (``st.async``
+  stores counted on the receiver's mbarrier: no fence, no cluster
+  barrier).
+
+``plan`` picks the launch from the shapes and B alone: the smallest C whose
+share fits a block's 227 KB, raised to 2 while all 2*B blocks find an SM of
+their own (PERF.md has the measurement); shapes that fit no cluster of four
+run with J and X left in device memory (``resident=False``).  Cluster
+launches need an sm_90 card: elsewhere the launch is refused and
+``psd_solve`` raises.
 """
 
 from __future__ import annotations
@@ -42,8 +74,15 @@ import ctypes
 
 import torch
 
-_THREADS = 512               # the kernel's block size (csrc/psd_solve.cu)
 _SMEM_MAX = 227 * 1024       # dynamic shared memory one block can have
+_MAX_THREADS = 1024          # block size: one thread per row, up to this
+_REG_THREADS = 576           # ... of the instances with J in registers
+_JREG = 40                   # ... which hold a row of up to 40 dofs
+_CLUSTERS = (1, 2, 4)
+_MAX_NE = 32                 # z = EEinv w is computed by one warp's lanes
+_SMS = 132                   # an H100's multiprocessors
+_REGISTERS = 65536           # ... and the registers of one
+_OTHER_REGS = 56             # what the kernel uses beside the resident rows
 
 # operands recorded by ``capture`` (None when no capture is open)
 _captured: list | None = None
@@ -135,19 +174,102 @@ def _check(ops: dict, K: int, nlim: int, iterations: int):
     raise ValueError(f'psd_solve: iterations={iterations}')
 
 
-def _smem_bytes(nI: int, nv: int, nE: int) -> int:
-  """Dynamic shared memory of one block: f, g, d, R, b, precond rows,
-  A_IE, EEinv, u, w, z and the two reduction buffers."""
-  return 4 * (6 * nI + nI * nE + nE * nE + nv + 2 * nE +
-              2 * (_THREADS // 32))
+def _round4(n: int) -> int:
+  return (n + 3) & ~3
+
+
+def _smem_bytes(nI: int, nv: int, nE: int, K: int, C: int, threads: int,
+                resident: bool, jreg: int) -> int:
+  """Dynamic shared memory of one block (``psd::make_plan`` of the source,
+  word for word): the staging and exchange barriers; the f, g, d, R, b,
+  precond rows and the row map of the block's share; mu_t, mu_tor, con_act,
+  lim_act; A_IEᵀ, EEinv; the two exchange buffers, u/w and the dot-product
+  partials; and, resident, X and (unless its rows are in registers) J."""
+  Kl = -(-K // C)
+  tl = -(-(nI - 4 * K) // C)
+  nl = 4 * Kl + tl
+  nlp = _round4(nl)
+  NW = 0 if nE == 0 else max(8, _round4(nE))
+  PW = max(_round4(nv), jreg) + NW
+  words = (8 + 7 * nlp + 3 * _round4(Kl) + _round4(tl) + nE * nlp +
+           nE * NW + (2 * C + 1) * PW +
+           2 * _round4(C * (threads // 32)))
+  if resident:
+    words += nv * nlp
+    if not jreg:
+      words += _round4(nl * nv + 4)
+  return 4 * words
+
+
+def plan(B: int, nI: int, nv: int, nE: int, K: int,
+         cluster: int | None = None) -> dict:
+  """How one launch is laid out, from the shapes and B alone.
+
+  Returns ``cluster`` (blocks per env), ``threads`` (per block), ``resident``
+  (J and X staged on the SM), ``jreg`` (0, or the registers that hold a row
+  of J per thread), ``xreg`` (each warp keeps its rows of X in registers
+  too) and ``smem`` (bytes per block).  The smallest cluster whose share is
+  resident is taken, raised to 2 while all 2*B blocks still find an SM of
+  their own: a pair of blocks per env measured faster than one block at
+  B=64 and at B=1, and a cluster of 4 no faster than the pair (PERF.md).
+  A shape that is resident in no cluster runs with J and X in device
+  memory.  ``cluster`` forces the cluster size.  Raises when even the row
+  vectors of a share exceed a block's memory.
+  """
+  if cluster is not None and cluster not in _CLUSTERS:
+    raise ValueError(f'psd_solve: cluster={cluster}, not one of {_CLUSTERS}')
+  if nE > _MAX_NE:
+    raise ValueError(f'psd_solve: nE={nE} weld rows, the kernel takes '
+                     f'{_MAX_NE}')
+
+  def layout(C, resident):
+    nl = 4 * -(-K // C) + -(-(nI - 4 * K) // C)     # rows of the largest share
+    jreg = _JREG if resident and nv <= _JREG and nl <= _REG_THREADS else 0
+    # a thread per row, and a warp per four outputs of u = X v, w = A_IEᵀ v
+    threads = min(_REG_THREADS if jreg else _MAX_THREADS,
+                  max((nl + 31) // 32 * 32, -(-(nv + nE) // 4) * 32))
+    smem = _smem_bytes(nI, nv, nE, K, C, threads, resident, jreg)
+    # a warp's four rows of [X; A_IEᵀ] in its registers too, where the
+    # block's size leaves them (registers are dealt out per 128 threads)
+    row_regs = 16 * -(-(-(-nl // 4)) // 32)
+    xreg = (resident and nv + nE <= 4 * (threads // 32) and
+            row_regs + jreg + _OTHER_REGS <=
+            min(255, _REGISTERS // (-(-threads // 128) * 128)))
+    return dict(cluster=C, threads=threads, resident=resident, jreg=jreg,
+                xreg=xreg, smem=smem)
+
+  sizes = _CLUSTERS if cluster is None else (cluster,)
+  for resident in (True, False):
+    fits = [lay for lay in (layout(C, resident) for C in sizes)
+            if lay['smem'] <= _SMEM_MAX]
+    if fits:
+      pair = (resident and len(fits) > 1 and fits[0]['cluster'] == 1 and
+              2 * B <= _SMS)
+      return fits[1] if pair else fits[0]
+  raise ValueError(f'psd_solve: nI={nI}, nv={nv}, nE={nE}, K={K} fit no '
+                   f'block\'s {_SMEM_MAX} bytes of shared memory, resident '
+                   f'or not')
+
+
+def build_spec(B: int, nI: int, nv: int, nE: int, K: int, nlim: int,
+               cluster: int | None = None) -> dict:
+  """What ``utils.build.load_psd`` builds the kernel from: the shapes of a
+  solve and their launch plan."""
+  return dict(plan(B, nI, nv, nE, K, cluster), nI=nI, nv=nv, nE=nE, K=K,
+              nlim=nlim)
 
 
 def psd_solve(J, X, A_IE, EEinv, R, b, precond, f0, mu_t, mu_tor, con_act,
-              lim_act, K: int, nlim: int, iterations: int) -> torch.Tensor:
+              lim_act, K: int, nlim: int, iterations: int,
+              cluster: int | None = None) -> torch.Tensor:
   """The iterated inequality-row forces f [B, nI].
 
-  CUDA tensors: one launch of the kernel on the current stream, counted in
-  ``psd_solve.launches``.  CPU tensors: the plain twin.
+  CUDA tensors: one launch of the kernel on the current stream, laid out by
+  ``plan`` (``cluster`` forces its cluster size), counted in
+  ``psd_solve.launches``.  The kernel is built for these shapes at their
+  first solve (nvcc, a few seconds) and kept.  Shapes that are resident in
+  no cluster of four blocks run with J and X in device memory.  CPU
+  tensors: the plain twin.
   """
   ops = dict(J=J, X=X, A_IE=A_IE, EEinv=EEinv, R=R, b=b, precond=precond,
              f0=f0, mu_t=mu_t, mu_tor=mu_tor, con_act=con_act,
@@ -163,12 +285,9 @@ def psd_solve(J, X, A_IE, EEinv, R, b, precond, f0, mu_t, mu_tor, con_act,
     raise ValueError(f'psd_solve: no kernel for device {dev}')
   B, nI, nv = J.shape
   nE = A_IE.shape[2]
-  if _smem_bytes(nI, nv, nE) > _SMEM_MAX:
-    raise ValueError(f'psd_solve: nI={nI}, nv={nv}, nE={nE} need '
-                     f'{_smem_bytes(nI, nv, nE)} bytes of shared memory, '
-                     f'more than {_SMEM_MAX}')
+  lay = build_spec(B, nI, nv, nE, K, nlim, cluster)
   from ..utils import build
-  lib = build.load_kernels()
+  lib = build.load_psd(lay)
   out = torch.empty((B, nI), dtype=torch.float32, device=dev)
   stream = torch.cuda.current_stream(dev).cuda_stream
   ptr = lambda t: ctypes.c_void_p(t.data_ptr())
@@ -176,11 +295,10 @@ def psd_solve(J, X, A_IE, EEinv, R, b, precond, f0, mu_t, mu_tor, con_act,
     err = lib.psd_solve_f32(
         ptr(J), ptr(X), ptr(A_IE), ptr(EEinv), ptr(R), ptr(b), ptr(precond),
         ptr(f0), ptr(mu_t), ptr(mu_tor), ptr(con_act), ptr(lim_act),
-        ptr(out), B, nI, nv, nE, K, nlim, iterations,
-        ctypes.c_void_p(stream))
+        ptr(out), B, iterations, ctypes.c_void_p(stream))
   if err != 0:
-    raise RuntimeError('psd_solve launch failed: ' +
-                       lib.geeco_cuda_error_string(err).decode())
+    raise RuntimeError(f'psd_solve launch failed ({lay}): ' +
+                       lib.psd_cuda_error_string(err).decode())
   psd_solve.launches += 1
   return out
 

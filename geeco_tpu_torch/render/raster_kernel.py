@@ -10,7 +10,10 @@ inverse depth is larger than the buffer's.  Colour is the packed
 r*65536 + g*256 + b float, starting as sky; inverse depth starts at 0.
 
 Input: the 13 affine-coefficient rows of ``rasterizer._coeff_planes``,
-tile-major ``coeffs [B, n_tiles, 13, K]`` float32, contiguous.
+tile-major ``coeffs [B, n_tiles, 13, K]`` float32, contiguous.  The layout
+is the one the port has had from the start: the kernel itself compacts the
+slots and turns them slot-major while it stages them, so ``_coeff_planes``
+and the twin keep it.
 Output: ``izbuf, cbuf [B, n_tiles, tile*tile]`` float32 (pixel p of a tile
 is row p // tile, column p % tile).
 
@@ -18,10 +21,27 @@ is row p // tile, column p % tile).
 tensor on the card and runs the plain twin ``raster_tiles_reference`` for a
 tensor on the CPU; any other device raises.  Nothing falls back.
 
+What bounds the kernel on an H100, and its design: tested against all K
+slots a pixel costs ~35 instructions per slot and the loop is bound by
+the instruction rate; but most slots of a real tile are empty or belong to
+triangles that miss the tile.  The kernel runs one warp per tile (four
+tiles per block, no block barrier): it reads the slots 32 at a time with
+coalesced loads (the next chunk in flight while this one is rasterized),
+drops every slot one of whose edge functions is negative at all four corner
+pixels of the tile (then it is negative at every pixel, so the slot can win
+none; empty slots, C0 = -1e30, go the same way), compacts the survivors in
+slot order into shared memory, slot-major, and rasterizes them with a 4x2
+patch of pixels per lane that shares the coefficient loads (four float4 per
+slot) and the rounded products ``a*px`` and ``b*py``.  What is left is bound
+by reading the coefficients once.  The kernel takes any K >= 0 and tiles
+of 4, 8, 12 or 16 pixels a side (``kernel_limits``); it uses 8 KB of static
+shared memory per block whatever K is.
+
 Numerics: the kernel evaluates each affine form as ``(a*px + b*py) + c``
 with rounded multiplies and adds and no FMA contraction (explicit
-``__fmul_rn``/``__fadd_rn``, and ``--fmad=false``), in the twin's order, so
-the two agree bit for bit on the same coefficients.
+``__fmul_rn``/``__fadd_rn``, and ``--fmad=false``), in the twin's order, and
+keeps the slot order (ties go to the lower slot), so the two agree bit for
+bit on the same coefficients.
 """
 
 from __future__ import annotations
@@ -31,7 +51,8 @@ import ctypes
 import torch
 
 N_COEFF = 13
-_SMEM_LIMIT = 48 * 1024   # static shared-memory budget of one block
+_PATCH = (4, 2)           # pixels per lane, columns x rows
+_MAX_TILE = 16            # 32 lanes x 8 pixels
 
 
 def _pixel_centres(tile: int, like: torch.Tensor):
@@ -71,11 +92,19 @@ def _check(coeffs: torch.Tensor, tile: int):
                      f'{tuple(coeffs.shape)}')
   if not coeffs.is_contiguous():
     raise ValueError('coeffs must be contiguous')
-  if not 1 <= tile * tile <= 1024:
-    raise ValueError(f'tile={tile}: one thread per pixel needs tile^2 <= 1024')
-  if N_COEFF * coeffs.shape[3] * 4 > _SMEM_LIMIT:
-    raise ValueError(f'K={coeffs.shape[3]} slots exceed the kernel\'s '
-                     f'{_SMEM_LIMIT}-byte shared-memory budget')
+  if tile < 1:
+    raise ValueError(f'tile={tile}')
+
+
+def kernel_limits(tile: int):
+  """Raise on a tile size the CUDA kernel does not take: one warp rasterizes
+  a tile in 4x2-pixel patches, one per lane, so the side is a multiple of 4
+  and at most 16.  (Any slot count K is taken: slots are read 32 at a time.)
+  """
+  if tile % _PATCH[0] or not _PATCH[0] <= tile <= _MAX_TILE:
+    raise ValueError(f'raster_tiles: tile={tile}: the kernel takes sides of '
+                     f'4, 8, 12 or 16 pixels (one {_PATCH[0]}x{_PATCH[1]} '
+                     'patch per lane of a warp)')
 
 
 def raster_tiles(coeffs: torch.Tensor, tile: int, sky_packed: float):
@@ -89,6 +118,7 @@ def raster_tiles(coeffs: torch.Tensor, tile: int, sky_packed: float):
     return raster_tiles_reference(coeffs, tile, sky_packed)
   if coeffs.device.type != 'cuda':
     raise ValueError(f'raster_tiles: no kernel for device {coeffs.device}')
+  kernel_limits(tile)
   from ..utils import build
   lib = build.load_kernels()
   B, n_tiles, _, K = coeffs.shape

@@ -204,3 +204,51 @@ def test_shadows_only_darken(frame64):
   diff = on.int() - off.int()
   assert (diff > 2).sum() == 0                    # never brighten
   assert (diff.amin(-1) < -2).sum() > 0, 'no shadow pixels'
+
+
+@pytest.mark.parametrize('tile', [4, 8, 12, 16])
+def test_kernel_limits_takes_patchable_tiles(tile):
+  RK.kernel_limits(tile)      # one 4x2 patch per lane of a warp
+
+
+@pytest.mark.parametrize('tile', [1, 2, 6, 10, 18, 20, 32])
+def test_kernel_limits_rejects(tile):
+  with pytest.raises(ValueError, match='4, 8, 12 or 16'):
+    RK.kernel_limits(tile)
+
+
+@pytest.mark.parametrize('K', [0, 7, 50])
+def test_raster_reference_any_slot_count(K):
+  """The layout takes any K (the kernel reads slots 32 at a time): no slot,
+  and counts that are no multiple of 4."""
+  rng = np.random.RandomState(K)
+  coeffs = torch.as_tensor(rng.normal(size=(2, 3, 13, K)).astype(np.float32))
+  iz, c = RK.raster_tiles(coeffs, 8, 7.0)
+  assert iz.shape == c.shape == (2, 3, 64)
+  if K == 0:
+    assert bool((iz == 0).all()) and bool((c == 7.0).all())
+  assert bool(torch.isfinite(iz).all())
+
+
+@pytest.mark.parametrize('TS', [8, 16])
+def test_corner_cull_never_drops_a_winning_slot(TS):
+  """The kernel drops a slot when one of its edge functions is negative at
+  all four corner pixels of the tile.  The rounded forms are monotone in px
+  and py, so such a slot covers no pixel: with those slots made empty the
+  twin gives every pixel bit for bit."""
+  planes = [torch.as_tensor(p.T)[None] for p in _random_planes(TS, 2, 64, 8)]
+  coeffs = TR._coeff_planes(planes, TS, 2)
+  lo, hi = 0.5, TS - 0.5
+  missed = torch.zeros_like(coeffs[:, :, 0], dtype=torch.bool)
+  for e in range(3):
+    a, b, c = (coeffs[:, :, 3 * e + i] for i in range(3))
+    corners = [a * x + b * y + c < 0 for x in (lo, hi) for y in (lo, hi)]
+    missed |= corners[0] & corners[1] & corners[2] & corners[3]
+  assert 0.05 < float(missed.float().mean()) < 0.95   # the cull does bite
+  culled = coeffs.clone()
+  culled[:, :, 0][missed] = 0.0
+  culled[:, :, 1][missed] = 0.0
+  culled[:, :, 2][missed] = -1.0                       # never inside
+  iz, c = RK.raster_tiles_reference(coeffs, TS, 3.0)
+  iz_c, c_c = RK.raster_tiles_reference(culled, TS, 3.0)
+  assert torch.equal(iz, iz_c) and torch.equal(c, c_c)

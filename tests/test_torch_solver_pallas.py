@@ -285,3 +285,123 @@ def test_psd_solve_rejects_bad_operands():
   with pytest.raises(ValueError, match='must be'):
     SP.psd_solve(**dict(ops, mu_t=ops['mu_t'][:, :4].contiguous()), **kw)
   assert SP.psd_solve.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# the wrapper's launch plan (pure functions of the shapes and B)
+
+PAD2CUBE2 = dict(nI=530, nv=39, nE=6, K=128)    # rolling=False, top-128
+
+
+@pytest.mark.parametrize('B', [64, 1])
+def test_plan_pad2cube2_is_a_resident_pair(B):
+  """At the pad2-cube2 shapes every operand is resident on the SM, J's rows
+  in registers (one thread per row); a pair of blocks splits an env while
+  the card has an SM for each block."""
+  lay = SP.plan(B, **PAD2CUBE2)
+  assert lay == dict(cluster=2, threads=384, resident=True, jreg=40,
+                     xreg=True, smem=lay['smem'])
+  assert lay['threads'] >= 265                       # one thread per row
+  assert lay['threads'] // 32 >= -(-(39 + 6) // 4)   # a warp per 4 outputs
+  # half of X (39 padded rows of 268) + the row vectors
+  assert 39 * 268 * 4 < lay['smem'] < 64 * 1024
+
+
+@pytest.mark.parametrize('B,C', [(66, 2), (67, 1), (256, 1)])
+def test_plan_pair_only_while_every_block_has_an_sm(B, C):
+  lay = SP.plan(B, **PAD2CUBE2)
+  assert lay['cluster'] == C and lay['resident'] and lay['jreg'] == 40
+  if C == 1:
+    assert lay['threads'] == 544                     # 530 rows, one block
+    assert not lay['xreg']         # 96 registers a thread: no room for X
+    # X (39 padded rows) + the row vectors: far from J + X = 165 KB
+    assert 39 * 532 * 4 < lay['smem'] < 120 * 1024
+
+
+@pytest.mark.parametrize('C,threads', [(1, 544), (2, 384), (4, 384)])
+def test_plan_forced_cluster_splits_the_rows(C, threads):
+  lay = SP.plan(64, **PAD2CUBE2, cluster=C)
+  assert (lay['cluster'], lay['threads']) == (C, threads)
+  assert lay['resident'] and lay['jreg'] == 40
+  assert lay['smem'] < SP.plan(64, **PAD2CUBE2, cluster=1)['smem'] or C == 1
+
+
+@pytest.mark.parametrize('B,shape,want', [
+    # K=192 contacts, nv=63: J + X are 396 KB, resident only in a cluster
+    (64, dict(nI=786, nv=63, nE=6, K=192),
+     dict(cluster=2, resident=True, jreg=0)),
+    # nv > 40: J in shared memory; one block when the batch is large
+    (128, dict(nI=274, nv=45, nE=6, K=64),
+     dict(cluster=1, resident=True, jreg=0)),
+    # resident in no cluster of four: J, X stay in device memory
+    (3, dict(nI=1298, nv=87, nE=6, K=320),
+     dict(cluster=1, resident=False, jreg=0)),
+    # no weld rows
+    (64, dict(nI=530, nv=39, nE=0, K=128),
+     dict(cluster=2, resident=True, jreg=40)),
+], ids=['K192_nv63', 'nv45', 'not_resident', 'no_weld'])
+def test_plan_by_shape(B, shape, want):
+  lay = SP.plan(B, **shape)
+  assert {k: lay[k] for k in want} == want
+  assert lay['smem'] <= SP._SMEM_MAX
+  assert lay['threads'] % 32 == 0 and lay['threads'] <= 1024
+  if lay['jreg']:
+    assert lay['threads'] <= SP._REG_THREADS
+
+
+@pytest.mark.parametrize('kw,match', [
+    (dict(nI=40000, nv=39, nE=6, K=128), 'fit no block'),
+    (dict(**PAD2CUBE2, cluster=3), 'cluster=3'),
+    (dict(nI=530, nv=39, nE=33, K=128), 'weld rows'),
+], ids=['fits_nothing', 'bad_cluster', 'too_many_weld_rows'])
+def test_plan_rejects(kw, match):
+  with pytest.raises(ValueError, match=match):
+    SP.plan(64, **kw)
+
+
+def test_smem_bytes_counts_what_is_staged():
+  """Resident costs X (and J unless its rows are in registers); a cluster
+  halves the share."""
+  base = dict(nI=530, nv=39, nE=6, K=128, C=1, threads=544)
+  gone = SP._smem_bytes(**base, resident=False, jreg=0)
+  regs = SP._smem_bytes(**base, resident=True, jreg=40)
+  smem = SP._smem_bytes(**base, resident=True, jreg=0)
+  assert regs - gone == 4 * 39 * 532                       # X, padded rows
+  assert smem - regs == 4 * (530 * 39 + 4 + 2)             # J (+ alignment)
+  half = SP._smem_bytes(**dict(base, C=2, threads=384), resident=True,
+                        jreg=40)
+  assert half < 0.6 * regs
+  assert all(n % 16 == 0 for n in (gone, regs, smem, half))
+
+
+def test_psd_solve_cluster_argument_on_cpu_runs_the_twin():
+  ops = _torch(_operands(5, B=2))
+  kw = dict(K=8, nlim=2, iterations=5)
+  a = SP.psd_solve(**ops, **kw, cluster=2)
+  b = SP.psd_solve_reference(**ops, **kw)
+  assert torch.equal(a, b)
+  assert SP.psd_solve.launches == 0
+
+
+def test_kernel_library_is_keyed_by_shape_and_plan():
+  """The PSD kernel is compiled per shape: the library's name and its -D
+  constants follow the shapes and the plan, and nothing is built until a
+  solve on the card asks for it."""
+  from geeco_tpu_torch.utils import build
+  spec = SP.build_spec(128, 530, 39, 6, 128, 9)
+  assert {k: spec[k] for k in build.PSD_KEYS} == dict(
+      nI=530, nv=39, nE=6, K=128, nlim=9, cluster=1, threads=544,
+      resident=True, jreg=40, xreg=False)
+  path, args = build.psd_library(spec)
+  assert path.startswith(build.BUILD_DIR) and path.endswith('.so')
+  for flag in ('-DPSD_NI=530', '-DPSD_NV=39', '-DPSD_NE=6', '-DPSD_K=128',
+               '-DPSD_NLIM=9', '-DPSD_C=1', '-DPSD_THREADS=544',
+               '-DPSD_RESIDENT=1', '-DPSD_JREG=40', '-DPSD_XREG=0'):
+    assert flag in args
+  assert build.psd_library(spec)[0] == path
+  others = [SP.build_spec(64, 530, 39, 6, 128, 9),          # a pair
+            SP.build_spec(128, 530, 39, 0, 128, 9),
+            SP.build_spec(128, 786, 63, 6, 192, 9)]
+  assert len({path, *(build.psd_library(s)[0] for s in others)}) == 4
+  assert build.psd_library(spec, ('PSD_PROFILE=1',))[0] != path
+  assert build._load_psd.cache_info().currsize == 0      # nvcc never ran

@@ -11,7 +11,12 @@ Drives the port's two paths at production settings on the card:
            env.render;
   slice 2: GeecoEnv('pad2-cube2', rolling=False, solver_method='pallas'),
            whose solve is the fused PSD kernel: the scripted pick-and-place
-           expert's 100-step state-only episodes (expert.policies.rollout).
+           expert's 100-step state-only episodes (expert.policies.rollout);
+  slice 3: the goal-conditioned E2E-VMC model at its production width
+           (dynimg/dyndiff, 256x256, bf16 convolutions, 7.56 M parameters):
+           the episode trainer on B=8 state-only episodes of T=99 steps,
+           re-rendered through slice 1's env.render_from_qpos, and
+           closed-loop evaluation of 64 envs on slice 1's env.
 
 Phases; any failure exits non-zero:
 
@@ -45,13 +50,32 @@ Phases; any failure exits non-zero:
      profiled control step
   8. fidelity of slice 2: the whole MuJoCo pick replay through the slice-2
      env at B=1, to task success with the task object within 30 mm
+  9. the model: the flagship forward (n=4, 256x256, bf16) finite and held
+     against the same weights' float32 forward on the card (no TF32); a
+     small float32 train step on the card held against the same step on the
+     CPU (loss, every gradient, the parameters after the step), and the same
+     step with cuDNN's TF32 on as a control the comparison must reject
+  10. the trainer at the bench point (bench.py's batch around slice 1's
+     settled state, chunk_windows=8, aug_pad=10, renders of 100 frames):
+     one warm-up step, whose raster-kernel launches (8 of 100 frames, one of
+     the 8 goal frames) are each held against the twin on their own
+     coefficients, then timed steps with the raster-kernel launches
+     (ceil(B*T/100) + 1 per step), the loss (finite, falling on the fixed
+     batch), train steps/s, peak device memory, one profiled step
+     (launches, device time, idle share) and one profiled render of 100
+     frames (the renders' share of the step)
+  11. closed loop: evaluate_batched of the flagship (its heads perturbed, so
+     that it acts) on 64 envs of slice 1 from the state phase 4 left, a few
+     control steps: finite metrics, one raster launch per step plus one for
+     the goal frames, env-steps/s
 
 Phases 5 and 8, the two replays at B=1, run in a process each (this script
 with --replay-only slice1 or slice2) from the build on: everything is
 host-bound and the card idles most of the time.  Meanwhile this process
 does what times nothing: the set-up of both slices, the kernel checks of
-phases 3 and 6 and the CPU frame.  The timed parts of phases 3, 4 and 7
-wait for both replays to end and run alone.
+phases 3 and 6, the CPU frame, phase 9 and the trainer's set-up and its
+warm-up step.  The timed parts of phases 3, 4, 7, 10 and 11 wait for both
+replays to end and run alone.
 
 The line before the last two is a JSON object describing each kernel; then
 the card's name and power limit; the last line is {"ok": true, "device":
@@ -61,6 +85,7 @@ the card's name and power limit; the last line is {"ok": true, "device":
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -107,6 +132,23 @@ PSD_BUILDS = (((530, 39, 6, 128, 9), (1, 2, 4)),
               ((1298, 87, 6, 320, 9), (None,)))
 HBM_RATE = 3.35e12
 FP32_RATE = 67e12
+# slice 3: the trainer at bench.py's point (bench.py:190-203): B episodes of
+# T steps, windows encoded in chunks of 8, state re-rendered RENDER_CHUNK
+# frames a call
+TRAIN_B, TRAIN_T, RENDER_CHUNK = 8, 99, 100
+TRAIN_STEPS = 5         # timed train steps, after one warm-up step
+CL_STEPS = 5            # closed-loop control steps of the ENVS envs
+# the flagship's heads in bf16 against float32 convolutions (8 bits of
+# mantissa through 8 layers; 0.37-1.19% on the H100, 1-3.3% on the CPU at
+# 256x256): within this share of their largest value
+BF16_REL = 0.03
+# a small float32 train step on the card against the CPU: the same float32
+# graph, other convolution algorithms (no TF32).  Gradients per tensor, as
+# the norm of the difference over the norm of the CPU's: the largest, and
+# the median over the tensors
+SMALL_LOSS_RTOL = 1e-4
+SMALL_GRAD_REL = 3e-3
+SMALL_GRAD_MEDIAN = 1e-4
 
 
 def fail(msg: str):
@@ -153,9 +195,10 @@ def cuda_ms(fn, repeats: int, queued: bool = False) -> float:
   return float(np.median(times))
 
 
-def compare_raster(coeffs, tile, sky, rk, label):
-  """Kernel vs twin on the same coefficients; returns max_abs_err."""
-  iz_k, c_k = rk.raster_tiles(coeffs, tile, sky)
+def compare_raster(coeffs, tile, sky, rk, label, out=None):
+  """Kernel vs twin on the same coefficients; returns max_abs_err.  ``out``:
+  the kernel's (izbuf, cbuf) of a launch the caller made on ``coeffs``."""
+  iz_k, c_k = rk.raster_tiles(coeffs, tile, sky) if out is None else out
   iz_r, c_r = rk.raster_tiles_reference(coeffs, tile, sky)
   torch.cuda.synchronize()
   mism = (c_k != c_r) | ((iz_k - iz_r).abs() > IZ_ATOL)
@@ -237,10 +280,17 @@ def time_raster(coeffs, tile, sky, rk, card, label):
   return ms, plain_ms, b_live
 
 
-def profile_step(fn, label, card, path=''):
+def profile_step(fn, label, card, path='', top=0):
   """One call of fn under torch.profiler: the CUDA kernel launches it made
   and the device time they took (profiled, so the host is slower than
-  unprofiled); with ``path``, the profiler's tables are written there."""
+  unprofiled); with ``path``, the profiler's tables are written there, with
+  ``top``, the kernels that took the most device time are printed.
+
+  The device time is the union of the device events' intervals (kernels,
+  copies, sets).  (Summing every event's self device time would count a
+  kernel twice, once as its own event and once under the operator that
+  launched it.)"""
+  from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
   torch.cuda.synchronize()
   t0 = time.perf_counter()
@@ -252,17 +302,331 @@ def profile_step(fn, label, card, path=''):
   events = prof.key_averages()
   launches = sum(e.count for e in events
                  if e.key.startswith(('cudaLaunchKernel', 'cuLaunchKernel')))
-  device_ms = sum(getattr(e, 'self_device_time_total', 0)
-                  for e in events) / 1e3
+  spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+  device_us, reach = 0.0, float('-inf')
+  for start, end in spans:
+    device_us += max(0.0, end - max(start, reach))
+    reach = max(reach, end)
+  device_ms = device_us / 1e3
   print(f'[profile] {label}: {launches} kernel launches, device time '
-        f'{device_ms:.1f} ms, wall {wall:.2f} s (profiled) on {card}',
-        flush=True)
+        f'{device_ms:.1f} ms ({len(spans)} device events), wall {wall:.2f} s '
+        f'(profiled) on {card}', flush=True)
+  if top:
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)[:top]
+    for e in kernels:
+      print(f'[profile]   {e.self_device_time_total / 1e3:8.1f} ms '
+            f'{e.count:6d}x {e.key[:90]}', flush=True)
   if path:
     with open(path, 'w') as f:
       f.write(f'# {label}, {card}\n')
       f.write(events.table(sort_by='cuda_time_total', row_limit=40))
       f.write('\n' + events.table(sort_by='cpu_time_total', row_limit=25))
     print(f'[profile] written to {path}', flush=True)
+  return launches, device_ms, wall
+
+
+def flagship_config():
+  """The flagship E2E-VMC (__graft_entry__.py: goal-conditioned,
+  dynimg/dyndiff, 256x256, bf16 convolutions) with the trainer settings of
+  bench.py:190-196."""
+  from geeco_tpu_torch.models.params import create_e2evmc_config
+  d = {'control_mode': 'cartesian', 'proc_obs': 'dynimg',
+       'proc_tgt': 'dyndiff', 'img_channels': 3, 'window_size': 4,
+       'batch_size': 32, 'lr': 2e-4, 'lambda_aux': 1.0,
+       'loss_weighting': 'cmd_mag', 'start_boost': 6.0,
+       'start_boost_windows': 13}
+  return create_e2evmc_config(d)
+
+
+def model_checks(card):
+  """Phase 9.  Returns (config, flagship model with its heads perturbed)."""
+  from geeco_tpu_torch.models import e2evmc as TE
+  cfg = flagship_config()
+  model = TE.make_model(cfg, True, device='cuda',
+                        generator=torch.Generator().manual_seed(0))
+  # zero-initialised heads predict exactly 0: give them seeded weights so
+  # the outputs see the whole network (and the closed loop acts)
+  gen = torch.Generator().manual_seed(1)
+  with torch.no_grad():
+    for name, _ in model.decoder.heads:
+      w = getattr(model.decoder, name).weight
+      w.copy_(0.05 * torch.randn(w.shape, generator=gen))
+  f32 = TE.make_model(dataclasses.replace(cfg, compute_dtype='float32'),
+                      True, device='cuda')
+  f32.load_state_dict(model.state_dict())
+  n, K, H, W = 4, cfg.window_size, cfg.img_height, cfg.img_width
+  g = torch.Generator(device='cuda').manual_seed(3)
+  frames = torch.rand((n, K, H, W, 3), generator=g, device='cuda')
+  jnt = torch.randn((n, K, 7), generator=g, device='cuda')
+  tgt = torch.rand((n, H, W, 3), generator=g, device='cuda')
+  carry = tuple(torch.randn((n, cfg.dim_h_lstm), generator=g, device='cuda')
+                for _ in range(2))
+  with torch.no_grad():
+    ep, c = model(frames, jnt, tgt, carry, False)
+    ref, rc = f32(frames, jnt, tgt, carry, False)
+  torch.cuda.synchronize()
+  err = 0.0
+  for k, _ in model.decoder.heads:
+    check(bool(torch.isfinite(ep[k]).all()), f'flagship {k} not finite')
+    rel = float((ep[k] - ref[k]).abs().max() / ref[k].abs().max())
+    err = max(err, rel)
+    print(f'[model] flagship {k}: |bf16 - float32| max {rel:.4g} of the '
+          f'largest |value| {float(ref[k].abs().max()):.4g} (tolerance '
+          f'{BF16_REL:g})', flush=True)
+    check(rel <= BF16_REL, f'flagship bf16 {k} disagrees with float32')
+  cerr = max(float((a - b).abs().max()) for a, b in zip(c, rc))
+  print(f'[model] flagship (n={n}, {K}x{H}x{W}x3, '
+        f'{TE.count_parameters(model)} parameters): carry |bf16 - float32| '
+        f'max {cerr:.4g} (tolerance {BF16_REL:g}); dynbuff '
+        f'{tuple(ep["dynbuff"].shape)}, dyndiff {tuple(ep["dyndiff"].shape)}',
+        flush=True)
+  check(cerr <= BF16_REL, 'flagship bf16 carry disagrees with float32')
+  del f32, frames, tgt
+  small_train_check()
+  return cfg, model
+
+
+def small_train_check():
+  """Phase 9b: one float32 per-window train step (64x64, encoders 20 wide:
+  their last GroupNorm is one group) on the CPU and on the card from the
+  same weights and batch; then the same step on the card with cuDNN's TF32
+  on in every convolution (the model's float32 scope replaced), a control
+  that the same comparison must reject."""
+  from geeco_tpu_torch.models import e2evmc as TE
+  from geeco_tpu_torch.models import train as TT
+  from geeco_tpu_torch.models.params import create_e2evmc_config
+  cfg = create_e2evmc_config(dict(
+      img_height=64, img_width=64, window_size=4, dim_s_obs=20, dim_s_dyn=20,
+      dim_s_diff=20, dim_h_lstm=16, dim_h_fc=16, proc_obs='dynimg',
+      proc_tgt='dyndiff', compute_dtype='float32', lr=1e-3))
+  rng = np.random.RandomState(1)
+  n = 4
+  feature = {'step': np.ones((n, 4), np.int64),
+             'rgb': rng.rand(n, 4, 64, 64, 3),
+             'jnt_state': rng.randn(n, 4, 7),
+             'ee_state': rng.randn(n, 4, 7), 'obj_state': rng.randn(n, 4, 7),
+             'target_rgb': rng.rand(n, 64, 64, 3)}
+  label = {'cmd': rng.uniform(-1, 1, (n, 4))}
+
+  def step_on(dev):
+    t = lambda x: torch.as_tensor(x if x.dtype == np.int64 else
+                                  x.astype(np.float32), device=dev)
+    init_fn, train_step, _, _ = TT.make_train_fns(cfg, True, device=dev)
+    ts = init_fn(torch.Generator().manual_seed(0), n)
+    gen = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+      for p in ts.model.parameters():
+        p.add_(0.05 * torch.randn(p.shape, generator=gen).to(dev))
+    ts, m = train_step(ts, {k: t(v) for k, v in feature.items()},
+                       {k: t(v) for k, v in label.items()})
+    return ({k: float(v) for k, v in m.items()},
+            {k: (p.grad.cpu(), p.detach().cpu())
+             for k, p in ts.model.named_parameters()})
+
+  @contextlib.contextmanager
+  def tf32_on(_dtype):
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+      yield
+    finally:
+      torch.backends.cudnn.allow_tf32 = before
+
+  def failures(run, label):
+    """The comparison with the CPU's step: what it finds out of tolerance."""
+    (m_c, p_c), (m_g, p_g) = cpu, run
+    out = [k for k, v in m_c.items()
+           if abs(m_g[k] - v) > SMALL_LOSS_RTOL * abs(v) + 1e-6]
+    rel = {k: float((p_g[k][0] - g).norm() / (g.norm() + 1e-12))
+           for k, (g, _) in p_c.items()}
+    worst = max(rel, key=rel.get)
+    median = float(np.median(list(rel.values())))
+    perr = max(float((p_g[k][1] - p).abs().max()) for k, (_, p) in p_c.items())
+    print(f'[model:small] {label}: loss {m_g["loss"]:.8g} (CPU '
+          f'{m_c["loss"]:.8g}); gradients |card - CPU| / |CPU| per tensor '
+          f'at most {rel[worst]:.3g} ({worst}; tolerance {SMALL_GRAD_REL:g}), '
+          f'median {median:.3g} (tolerance {SMALL_GRAD_MEDIAN:g}); '
+          f'parameters after the step {perr:.3g} apart (Adam\'s first step '
+          f'is about lr * sign(g): tolerance 2 lr = {2 * cfg.lr:g}); metrics '
+          f'out of tolerance: {out}', flush=True)
+    if rel[worst] > SMALL_GRAD_REL:
+      out.append('gradient (largest)')
+    if median > SMALL_GRAD_MEDIAN:
+      out.append('gradient (median)')
+    if perr > 2 * cfg.lr + 1e-6:
+      out.append('parameters')
+    return out
+
+  cpu = step_on('cpu')
+  bad = failures(step_on('cuda'), 'card')
+  check(not bad, f'small train step differs between card and CPU: {bad}')
+  scopes = TE.conv_precision, TT.conv_precision
+  TE.conv_precision = TT.conv_precision = tf32_on
+  try:
+    control = step_on('cuda')
+  finally:
+    TE.conv_precision, TT.conv_precision = scopes
+  bad = failures(control, 'control, TF32 on')
+  check(bool(bad), 'the card-vs-CPU comparison passes a step with TF32 on: '
+        'it cannot see TF32')
+
+
+def trainer_setup(env, card):
+  """Phase 10a: the episode trainer at the bench point on slice 1's env,
+  bench.py's batch around the env's settled state (bench.py:205-231), and
+  one warm-up step, in which every raster-kernel launch is held against the
+  twin on its own coefficients.  Returns (train_step, state, batch, warm-up
+  loss, the kernel's max_abs_err)."""
+  from geeco_tpu_torch.data.dataset import window_indices
+  from geeco_tpu_torch.models import train as TT
+  from geeco_tpu_torch.render import raster_kernel as rk
+  cfg = flagship_config()
+  t0 = time.perf_counter()
+  init_fn, train_step, _, _ = TT.make_episode_train_fns(
+      cfg, True, chunk_windows=8, render_fn=env.render_from_qpos,
+      aug_pad=10, render_chunk=RENDER_CHUNK, device='cuda')
+  ts = init_fn(torch.Generator().manual_seed(0), cfg.batch_size)
+  B, T, J = TRAIN_B, TRAIN_T, cfg.dim_jnt_state
+  phys = env.setup()
+  q0 = phys.qpos[0].cpu().numpy()
+  widx = window_indices(T, cfg.window_size, pad_start=True)
+  N = widx.shape[0]
+  rng = np.random.RandomState(0)
+  qpos = (q0[None, None] + 0.01 * rng.randn(B, T, q0.shape[0])).astype(
+      np.float32)
+  mocap = np.concatenate([phys.mocap_pos[0, 0].cpu().numpy(),
+                          phys.mocap_quat[0, 0].cpu().numpy()])
+  mocap = np.broadcast_to(mocap.astype(np.float32), (B, T, 7)).copy()
+  batch = {
+      'widx': widx, 'valid': np.ones((N,), bool),
+      'jnt_state': rng.randn(B, T, J).astype(np.float32),
+      'cmd': rng.uniform(-1, 1, (B, N, 4)).astype(np.float32),
+      'vel_target': rng.randn(B, N, J).astype(np.float32),
+      'ee_target': rng.randn(B, N, 7).astype(np.float32),
+      'grp_target': rng.rand(B, N, 2).astype(np.float32),
+      'pos_ee': rng.randn(B, N, 3).astype(np.float32),
+      'pos_obj': rng.randn(B, N, 3).astype(np.float32),
+      'qpos': qpos, 'mocap': mocap,
+      'rgba': np.broadcast_to(env.rgba0.astype(np.float32),
+                              (B,) + env.rgba0.shape).copy(),
+      'tgt_qpos': qpos[:, -1], 'tgt_mocap': mocap[:, -1],
+      'aug_shift': rng.randint(-10, 11, (B, 2)),
+  }
+  batch = {k: torch.as_tensor(v, device='cuda') for k, v in batch.items()}
+  # the warm-up step's renders (chunks of RENDER_CHUNK frames, the last one
+  # padded, then the goal frames): the kernel against its twin on the
+  # coefficients the trainer gave it, the output the trainer went on with
+  launch, sizes, err = rk.raster_tiles, [], 0.0
+
+  def checked_launch(coeffs, tile, sky):
+    nonlocal err
+    out = launch(coeffs, tile, sky)
+    sizes.append(coeffs.shape[0])
+    err = max(err, compare_raster(coeffs, tile, sky, rk,
+                                  f'trainer render {len(sizes)}', out))
+    return out
+
+  # the kernel's wrapper counts its launch under the module's name
+  checked_launch.launches = launch.launches
+  rk.raster_tiles = checked_launch
+  try:
+    ts, m = train_step(ts, batch)
+  finally:
+    rk.raster_tiles = launch
+    launch.launches = checked_launch.launches
+  loss0 = float(m['loss'])
+  want = [RENDER_CHUNK] * -(-B * T // RENDER_CHUNK) + [B]
+  print(f'[train] episode trainer (B={B}, T={T}, {N} windows, '
+        f'chunk_windows=8, render_chunk={RENDER_CHUNK}, aug_pad=10): set-up '
+        f'and warm-up step {time.perf_counter() - t0:.1f} s (beside the '
+        f'replay processes, its renders checked against the twin), loss '
+        f'{loss0:.5f}; frames per raster launch {sizes}', flush=True)
+  check(sizes == want, f'the warm-up step\'s raster launches took {sizes} '
+        f'frames, expected {want}')
+  check(np.isfinite(loss0), 'warm-up loss not finite')
+  return train_step, ts, batch, loss0, err
+
+
+def trainer_run(train_step, ts, batch, loss0, card, rk, env):
+  """Phase 10b: timed train steps on the fixed batch, alone, then one
+  profiled step and one profiled render of RENDER_CHUNK frames (the
+  renders' share of the step).  Returns the raster-kernel launches the
+  timed steps made."""
+  rk.raster_tiles.launches = 0
+  torch.cuda.reset_peak_memory_stats()
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  losses = []
+  for _ in range(TRAIN_STEPS):
+    ts, m = train_step(ts, batch)
+    losses.append(m['loss'])
+  torch.cuda.synchronize()
+  dt = time.perf_counter() - t0
+  launches = rk.raster_tiles.launches
+  peak = torch.cuda.max_memory_allocated()
+  losses = [loss0] + torch.stack(losses).tolist()
+  per_step = -(-TRAIN_B * TRAIN_T // RENDER_CHUNK) + 1
+  print(f'[train] {TRAIN_STEPS} train steps in {dt:.3f} s -> '
+        f'{TRAIN_STEPS / dt:.4f} train steps/s (B={TRAIN_B} x T={TRAIN_T}, '
+        f'256x256, bf16) on {card}; peak device memory '
+        f'{peak / 2 ** 30:.2f} GiB; loss over the warm-up and timed steps '
+        f'{[round(x, 5) for x in losses]}', flush=True)
+  print(f'[train] raster kernel launches: {launches} for {TRAIN_STEPS} '
+        f'steps ({per_step} a step: ceil({TRAIN_B}*{TRAIN_T}/{RENDER_CHUNK}) '
+        f'+ 1)', flush=True)
+  check(launches == per_step * TRAIN_STEPS,
+        'the raster kernel did not run ceil(B*T/render_chunk) + 1 times a '
+        'train step')
+  check(all(np.isfinite(losses)), 'a train loss is not finite')
+  check(losses[-1] < losses[0], 'the loss did not fall on the fixed batch')
+  n, dev_ms, wall = profile_step(lambda: train_step(ts, batch),
+                                 f'one train step, B={TRAIN_B} x '
+                                 f'T={TRAIN_T}', card, top=12)
+  step_ms = 1e3 * dt / TRAIN_STEPS
+  print(f'[train] device idle share of a train step: '
+        f'{1 - dev_ms / step_ms:.4f} of the unprofiled {step_ms:.1f} ms '
+        f'({1 - dev_ms / (1e3 * wall):.4f} of the profiled {1e3 * wall:.1f} '
+        f'ms); {n} launches', flush=True)
+  flat = lambda k: batch[k].reshape((-1,) + batch[k].shape[2:])
+  q, m = flat('qpos')[:RENDER_CHUNK], flat('mocap')[:RENDER_CHUNK]
+  rgba = batch['rgba'].repeat_interleave(TRAIN_T, 0)[:RENDER_CHUNK]
+  rn, r_ms, _ = profile_step(lambda: env.render_from_qpos(q, m, rgba),
+                             f'one render of {RENDER_CHUNK} frames', card)
+  chunks = TRAIN_B * TRAIN_T // RENDER_CHUNK
+  print(f'[train] the step\'s {chunks} full renders: ~{chunks * r_ms:.1f} ms '
+        f'of its {dev_ms:.1f} ms device time, ~{chunks * rn} of its {n} '
+        'launches (and one render of the padded chunk, one of the goal '
+        'frames)', flush=True)
+  return launches
+
+
+def closed_loop_run(env, es, cfg, model, card, rk):
+  """Phase 11: evaluate_batched of ``model`` on the ENVS envs of slice 1
+  from ``es``, timed alone.  Returns the raster-kernel launches."""
+  from geeco_tpu_torch.models import closed_loop as CL
+  rk.raster_tiles.launches = 0
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  agg = CL.evaluate_batched(env, cfg, model, True, ENVS, es0=es,
+                            n_steps=CL_STEPS)
+  torch.cuda.synchronize()
+  dt = time.perf_counter() - t0
+  launches = rk.raster_tiles.launches
+  print(f'[closed_loop] {CL_STEPS} control steps of {ENVS} envs (goal '
+        f'frames, render, policy, step) in {dt:.3f} s -> '
+        f'{ENVS * CL_STEPS / dt:.2f} env-steps/s on {card}; raster kernel '
+        f'launches {launches} (one a step + one for the goal frames)',
+        flush=True)
+  print('[closed_loop] ' + ', '.join(
+      f'{k} {float(v.float().mean()):.4f}' for k, v in agg.items()),
+      flush=True)
+  check(all(bool(torch.isfinite(v).all()) for v in agg.values()),
+        'closed-loop metrics not finite')
+  check(launches == CL_STEPS + 1,
+        'the raster kernel did not run once per control step + once')
+  return launches
 
 
 def bound(nbytes: float, ops: float):
@@ -745,6 +1109,11 @@ def drive(card, children, profile_path):
          **QVEL_TOL)
   del es5, sub_k, sub_r
 
+  # ---- 9, 10a. the model's checks; the trainer's set-up and warm-up step
+  cl_cfg, cl_model = model_checks(card)
+  *trainer, train_err = trainer_setup(env, card)
+  raster_err = max(raster_err, train_err)
+
   # phases 5 and 8, the replays' processes; everything below is timed and
   # runs alone
   for child, which in zip(children, ('slice-1', 'slice-2')):
@@ -798,7 +1167,13 @@ def drive(card, children, profile_path):
   profile_step(lambda: env.render(env.step(es, base)),
                f'slice 1, one control step + render, B={ENVS}', card,
                profile_path)
-  del env, es, rgb, depth, flat
+  del rgb, depth, flat
+
+  # ---- 10b. the trainer; 11. closed loop from the state slice 1 left
+  train_launches = trainer_run(*trainer, card, rk, env)
+  del trainer
+  cl_launches = closed_loop_run(env, es, cl_cfg, cl_model, card, rk)
+  del env, es, cl_model
 
   # ---- 7. slice 2: the expert's state-only episodes at B=64
   rk.raster_tiles.launches = 0
@@ -853,7 +1228,10 @@ def drive(card, children, profile_path):
       'name': 'raster_tiles', 'route': 'cuda',
       'source': 'geeco_tpu_torch/csrc/raster_tiles.cu',
       'replaces': 'geeco_tpu/render/rasterizer.py:778',
-      'launches': launches, 'max_abs_err': raster_err,
+      'launches': launches + train_launches + cl_launches,
+      'launches_by_path': {'slice1': launches, 'trainer': train_launches,
+                           'closed_loop': cl_launches},
+      'max_abs_err': raster_err,
       'ms': ms, 'plain_ms': plain_ms, 'bound_ms': raster_bound[0],
       'bound_by': raster_bound[1], 'library_ms': None,
   }, {

@@ -101,3 +101,51 @@ def expert_state_from_reference(ref: Any, device=None):
       target=_batched(_tensor(ref.target, device), 1),
       aux=_batched(_tensor(ref.aux, device), 1),
       count=_batched(_tensor(ref.count, device), 0))
+
+
+# flax module name -> the port's attribute
+_E2EVMC_MODULES = {'ConvEncoder': 'enc_obs', 'DynBuffEncoder': 'enc_dyn',
+                   'DynDiffEncoder': 'enc_diff', 'LSTMDecoder': 'decoder'}
+_LSTM_GATES = ('i', 'f', 'g', 'o')
+
+
+def e2evmc_params_from_reference(params: Any) -> dict:
+  """The port's E2E-VMC ``state_dict`` from a flax param tree.
+
+  ``params`` is the tree under ``variables['params']`` as nested dicts of
+  arrays.  Conv kernels [kh, kw, in, out] become weights [out, in, kh, kw]
+  and Dense kernels [in, out] weights [out, in] (both engines compute a
+  cross-correlation: no flip); GroupNorm ``scale`` becomes ``weight``; the
+  LSTM cell's per-gate kernels ``ii/if/ig/io`` ([in, H], no bias) and
+  ``hi/hf/hg/ho`` ([H, H] with bias) are stacked in gate order i, f, g, o
+  into ``lstm.ih`` and ``lstm.hh``.  Every leaf lands in exactly one entry;
+  a leaf this does not know raises.
+  """
+  t = lambda x: torch.from_numpy(np.array(x, np.float32))
+  out = {}
+  for mod, sub in params.items():
+    prefix = _E2EVMC_MODULES[mod]
+    for layer, leaves in sub.items():
+      key = f'{prefix}.{layer}'
+      names = set(leaves)
+      if layer == 'lstm':
+        out[key + '.ih.weight'] = torch.cat(
+            [t(leaves['i' + g]['kernel']).T for g in _LSTM_GATES])
+        out[key + '.hh.weight'] = torch.cat(
+            [t(leaves['h' + g]['kernel']).T for g in _LSTM_GATES])
+        out[key + '.hh.bias'] = torch.cat(
+            [t(leaves['h' + g]['bias']) for g in _LSTM_GATES])
+        names -= {p + g for p in 'ih' for g in _LSTM_GATES}
+      elif layer.startswith('gn'):
+        out[key + '.weight'] = t(leaves['scale'])
+        out[key + '.bias'] = t(leaves['bias'])
+        names -= {'scale', 'bias'}
+      else:
+        k = t(leaves['kernel'])
+        out[key + '.weight'] = (k.permute(3, 2, 0, 1) if k.ndim == 4
+                                else k.T).contiguous()
+        out[key + '.bias'] = t(leaves['bias'])
+        names -= {'kernel', 'bias'}
+      if names:
+        raise ValueError(f'unconverted leaves {sorted(names)} under {key}')
+  return out

@@ -29,11 +29,13 @@ configuration that runs the fused kernel).
 ``device`` defaults to the card: without one, construction raises unless
 ``device='cpu'`` is passed.
 
-Not ported yet: ``render_from_qpos``, the texture override of ``render``,
-the mesh-scene solver defaults (psd_block with quota contact selection),
-and the options ``contact_select_k``, ``hysteresis``, ``contact_select``,
-``mass_inverse``, ``start_sphere_r``, ``renderer_kwargs`` and the TPU
-unroll levers.
+``render_from_qpos`` re-renders state-only frames (the trainer's render_fn).
+
+Not ported yet: the texture override of ``render`` and
+``render_from_qpos``, the mesh-scene solver defaults (psd_block with quota
+contact selection), and the options ``contact_select_k``, ``hysteresis``,
+``contact_select``, ``mass_inverse``, ``start_sphere_r``,
+``renderer_kwargs`` and the TPU unroll levers.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from ..physics import kinematics as K
 from ..physics.solver import METHODS
 from ..physics.step import Stepper, build_stepper
 from ..render.rasterizer import Renderer, build_renderer
+from ..utils.device import resolve_device
 from . import spawn
 
 # The JAX package's vendored asset tree, read by path (never imported).
@@ -178,11 +181,7 @@ class GeecoEnv:
     if solver_method is not None and solver_method not in METHODS:
       raise NotImplementedError(f'solver_method {solver_method!r} is not '
                                 f'ported (ported: {", ".join(METHODS)})')
-    self.device = torch.device('cuda' if device is None else device)
-    if self.device.type == 'cuda' and not torch.cuda.is_available():
-      raise RuntimeError(f'device {str(self.device)!r} requested but CUDA '
-                         "is not available (pass device='cpu' to run on the "
-                         'CPU)')
+    self.device = resolve_device(device)
     # physics is strict float32: no TF32 in the batched matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
     self.shapes = shapes
@@ -306,12 +305,20 @@ class GeecoEnv:
 
   # ------------------------------------------------------------- reset
 
-  def _base_env_state(self, batch: int) -> EnvState:
+  def _phys_template(self, batch: int) -> State:
+    """The settled initial state expanded to ``batch`` envs (views of the
+    one state: clone a field before writing into it)."""
     phys0 = self.setup()
-    phys = State(**{f.name: None if getattr(phys0, f.name) is None else
+    return State(**{f.name: None if getattr(phys0, f.name) is None else
                     getattr(phys0, f.name).expand(
-                        (batch,) + getattr(phys0, f.name).shape[1:]).clone()
+                        (batch,) + getattr(phys0, f.name).shape[1:])
                     for f in dataclasses.fields(State)})
+
+  def _base_env_state(self, batch: int) -> EnvState:
+    phys = self._phys_template(batch)
+    phys = phys.replace(**{f.name: getattr(phys, f.name).clone()
+                           for f in dataclasses.fields(State)
+                           if getattr(phys, f.name) is not None})
     zeros = torch.zeros((batch,), dtype=torch.int64, device=self.device)
     return EnvState(
         phys=phys, ts=zeros, task_goal=zeros.clone(),
@@ -516,6 +523,29 @@ class GeecoEnv:
     """RGB uint8 [B, H, W, 3] and depth f32 [B, H, W] from
     external_camera_1, row 0 = top."""
     return self.renderer.render(self.kin(es), es.rgba)
+
+  def render_from_qpos(self, qpos: torch.Tensor, mocap_qpos: torch.Tensor,
+                       rgba: torch.Tensor, textures=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Re-render n recorded frames from their stored state.
+
+    qpos [n, nq], mocap_qpos [n, 7] (mocap position, then quaternion), rgba
+    [n, ngeom, 4] -> (rgb uint8 [n, H, W, 3], depth f32 [n, H, W]), one
+    render of all n.  State-only datasets store the full qpos + mocap pose
+    per step and the episode's recolour table instead of frames; FK reads
+    nothing else, so training re-synthesizes the exact pixels on the device.
+    The other fields come from the settled initial state.
+    """
+    if textures is not None:
+      raise NotImplementedError('the texture override of render is not '
+                                'ported yet')
+    n = qpos.shape[0]
+    mocap = mocap_qpos.to(self.device, torch.float32)
+    phys = self._phys_template(n).replace(
+        qpos=qpos.to(self.device, torch.float32),
+        mocap_pos=mocap[:, None, :3], mocap_quat=mocap[:, None, 3:])
+    return self.renderer.render(self.stepper.fk(phys),
+                                rgba.to(self.device, torch.float32))
 
 
 def make_env(shapes: str = 'pad2-cube2', **kwargs) -> GeecoEnv:

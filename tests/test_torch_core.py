@@ -206,8 +206,8 @@ def test_math_broadcast_and_integrate():
                                atol=ATOL)
 
 
-_IMPORT_RE = re.compile(r'^\s*(?:import|from)\s+(jax|flax|geeco_tpu)\b',
-                        re.MULTILINE)
+_IMPORT_RE = re.compile(
+    r'^\s*(?:import|from)\s+(jax|flax|optax|geeco_tpu)\b', re.MULTILINE)
 
 
 def test_port_sources_import_no_jax():
@@ -229,8 +229,10 @@ def test_port_import_leaves_jax_out_of_sys_modules():
   code = ('import sys; import geeco_tpu_torch.envs.base; '
           'import geeco_tpu_torch.render.raster_kernel; '
           'import geeco_tpu_torch.utils.build; '
+          'import geeco_tpu_torch.models.train; '
+          'import geeco_tpu_torch.models.closed_loop; '
           'bad = [m for m in sys.modules if m.split(".")[0] in '
-          '("jax", "flax", "geeco_tpu")]; print(bad); '
+          '("jax", "flax", "optax", "geeco_tpu")]; print(bad); '
           'sys.exit(1 if bad else 0)')
   env = dict(os.environ)
   env['PYTHONPATH'] = REPO_ROOT

@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (geeco_tpu_torch) on one NVIDIA GPU.
 
   python3 chip_smoke.py [--profile OUT.txt] [--psd-phases]
+                        [--replay-only slice1|slice2] [--cli-only frames|chain]
 
 Drives the port's two paths at production settings on the card:
 
@@ -17,6 +18,9 @@ Drives the port's two paths at production settings on the card:
            the episode trainer on B=8 state-only episodes of T=99 steps,
            re-rendered through slice 1's env.render_from_qpos, and
            closed-loop evaluation of 64 envs on slice 1's env.
+  slice 4: the command-line workflow (run/gym_pickplace.py collect and
+           controller, run/dataset_tools.py, run/train_e2evmc.py, the
+           predictor) on datasets it writes to build/cli_smoke/.
 
 Phases; any failure exits non-zero:
 
@@ -68,14 +72,27 @@ Phases; any failure exits non-zero:
      that it acts) on 64 envs of slice 1 from the state phase 4 left, a few
      control steps: finite metrics, one raster launch per step plus one for
      the goal frames, env-steps/s
+  12. slice 4, the command-line workflow through the CLIs' main(args) at
+     full width (256x256, the flagship at the bench point), small depth:
+     (frames) a frame-mode collect of 8 episodes, one raster launch a
+     recorded step, npz + pickle + TFRecord; (chain) a state-only collect
+     of 40 episodes, the balanced split, 2 train steps and an eval pass, a
+     third step resumed from state-*.pt (step count and Adam moments
+     continue), the predictor restored from the checkpoint (weights equal
+     bit for bit, predict against the trainer model's forward), the
+     batched controller on the test split (the CSVs' rows); the raster
+     kernel held against its twin on the first launch of each new size,
+     its launches counted per path; episodes/s, train steps/s and
+     controller env-steps/s
 
-Phases 5 and 8, the two replays at B=1, run in a process each (this script
-with --replay-only slice1 or slice2) from the build on: everything is
-host-bound and the card idles most of the time.  Meanwhile this process
-does what times nothing: the set-up of both slices, the kernel checks of
-phases 3 and 6, the CPU frame, phase 9 and the trainer's set-up and its
-warm-up step.  The timed parts of phases 3, 4, 7, 10 and 11 wait for both
-replays to end and run alone.
+Phases 5 and 8, the two replays at B=1, and the two parts of phase 12 run
+in a process each (this script with --replay-only slice1|slice2 or
+--cli-only frames|chain) from the build on: everything is host-bound and
+the card idles most of the time.  Meanwhile this process does what times
+nothing: the set-up of both slices, the kernel checks of phases 3 and 6,
+the CPU frame, phase 9 and the trainer's set-up and its warm-up step.  The
+timed parts of phases 3, 4, 7, 10 and 11 wait for those processes to end
+and run alone; phase 12's rates are taken beside them, on a shared host.
 
 The line before the last two is a JSON object describing each kernel; then
 the card's name and power limit; the last line is {"ok": true, "device":
@@ -86,9 +103,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import csv
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -142,6 +161,17 @@ CL_STEPS = 5            # closed-loop control steps of the ENVS envs
 # mantissa through 8 layers; 0.37-1.19% on the H100, 1-3.3% on the CPU at
 # 256x256): within this share of their largest value
 BF16_REL = 0.03
+# phase 12, the command-line workflow (two processes of their own):
+# frame-mode collection of CLI_FRAME_ENVS episodes; state-only collection
+# of one chunk of CLI_ENVS (its balanced split leaves 2 train batches and
+# an eval batch), CLI_STEPS recorded steps each (cut from 100); the trainer
+# at the bench point on CLI_BATCH episodes a batch; the batched controller
+# on the test split, CLI_CTRL_ENVS envs, CLI_CL_STEPS control steps (cut
+# from 200)
+CLI_DIR = os.path.join(ROOT, 'build', 'cli_smoke')
+CLI_PARTS = ('frames', 'chain')
+CLI_FRAME_ENVS, CLI_ENVS, CLI_STEPS = 8, 40, 10
+CLI_BATCH, CLI_CTRL_ENVS, CLI_CL_STEPS = 8, 16, 5
 # a small float32 train step on the card against the CPU: the same float32
 # graph, other convolution algorithms (no TF32).  Gradients per tensor, as
 # the norm of the difference over the norm of the CPU's: the largest, and
@@ -473,6 +503,36 @@ def small_train_check():
         'it cannot see TF32')
 
 
+@contextlib.contextmanager
+def checked_raster(rk, label, first_of_each_size=False):
+  """Hold the raster kernel against its twin inside the block, on the
+  coefficients its callers gave it and on the output they went on with:
+  every launch, or the first launch of each batch size.  Yields a dict
+  with the frames of every launch ('sizes') and the largest max_abs_err
+  ('err').  The comparisons launch nothing: the counts stay the path's."""
+  launch = rk.raster_tiles
+  out = {'sizes': [], 'err': 0.0}
+
+  def checked_launch(coeffs, tile, sky):
+    res = launch(coeffs, tile, sky)
+    size = coeffs.shape[0]
+    if not (first_of_each_size and size in out['sizes']):
+      out['err'] = max(out['err'], compare_raster(
+          coeffs, tile, sky, rk, f'{label} render {len(out["sizes"]) + 1}',
+          res))
+    out['sizes'].append(size)
+    return res
+
+  # the kernel's wrapper counts its launch under the module's name
+  checked_launch.launches = launch.launches
+  rk.raster_tiles = checked_launch
+  try:
+    yield out
+  finally:
+    rk.raster_tiles = launch
+    launch.launches = checked_launch.launches
+
+
 def trainer_setup(env, card):
   """Phase 10a: the episode trainer at the bench point on slice 1's env,
   bench.py's batch around the env's settled state (bench.py:205-231), and
@@ -518,24 +578,9 @@ def trainer_setup(env, card):
   # the warm-up step's renders (chunks of RENDER_CHUNK frames, the last one
   # padded, then the goal frames): the kernel against its twin on the
   # coefficients the trainer gave it, the output the trainer went on with
-  launch, sizes, err = rk.raster_tiles, [], 0.0
-
-  def checked_launch(coeffs, tile, sky):
-    nonlocal err
-    out = launch(coeffs, tile, sky)
-    sizes.append(coeffs.shape[0])
-    err = max(err, compare_raster(coeffs, tile, sky, rk,
-                                  f'trainer render {len(sizes)}', out))
-    return out
-
-  # the kernel's wrapper counts its launch under the module's name
-  checked_launch.launches = launch.launches
-  rk.raster_tiles = checked_launch
-  try:
+  with checked_raster(rk, 'trainer') as chk:
     ts, m = train_step(ts, batch)
-  finally:
-    rk.raster_tiles = launch
-    launch.launches = checked_launch.launches
+  sizes, err = chk['sizes'], chk['err']
   loss0 = float(m['loss'])
   want = [RENDER_CHUNK] * -(-B * T // RENDER_CHUNK) + [B]
   print(f'[train] episode trainer (B={B}, T={T}, {N} windows, '
@@ -627,6 +672,303 @@ def closed_loop_run(env, es, cfg, model, card, rk):
   check(launches == CL_STEPS + 1,
         'the raster kernel did not run once per control step + once')
   return launches
+
+
+def _rows(path):
+  """(header, rows) of a ';'-delimited CSV."""
+  with open(path, newline='') as f:
+    rows = list(csv.reader(f, delimiter=';'))
+  return rows[0], rows[1:]
+
+
+def _timed(fn, spans):
+  """fn, with the seconds of each call (between two device synchronizes)
+  appended to ``spans``."""
+  def run(*a, **k):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*a, **k)
+    torch.cuda.synchronize()
+    spans.append(time.perf_counter() - t0)
+    return out
+  return run
+
+
+def cli_summary(part: str) -> str:
+  return os.path.join(CLI_DIR, f'{part}.json')
+
+
+def cli_phase(card, part, summary_path):
+  """Phase 12, the command-line workflow through the CLIs' main(args) on
+  the card at full width, small depth, in CLI_DIR; ``part`` 'frames' or
+  'chain' (``--cli-only``: each a process of its own beside the replays).
+  'frames': a frame-mode collect (npz, pickle, TFRecord per episode).
+  'chain': a state-only collect, the split, train at the bench point,
+  resume, the predictor restored from the checkpoint, the batched
+  controller on the test split.  Checks the files, the resume, the
+  predictor's weights and the controller's rows; holds the raster kernel
+  against its twin on the first launch of each new size and counts its
+  launches per path.  Writes the launches, the kernel's max_abs_err and the
+  rates to ``summary_path``."""
+  from geeco_tpu_torch.models import closed_loop as CL
+  from geeco_tpu_torch.models import train as TT
+  from geeco_tpu_torch.physics import solver_pallas as SP
+  from geeco_tpu_torch.render import raster_kernel as rk
+  from geeco_tpu_torch.run import sim
+  t_phase = time.perf_counter()
+  work = os.path.join(CLI_DIR, part)
+  shutil.rmtree(work, ignore_errors=True)
+  # the rollouts, train steps and closed loops the CLIs run, timed between
+  # two synchronizes; the controller's raster launches before its closed
+  # loop (the goal frames) read at the loop's start
+  spans = {'rollout': [], 'train_step': [], 'closed_loop': []}
+  goal_launches = []
+  sim.rollout = _timed(sim.rollout, spans['rollout'])
+  make_fns = TT.make_episode_train_fns
+
+  def timed_fns(*a, **k):
+    init_fn, train_step, eval_step, opt = make_fns(*a, **k)
+    return init_fn, _timed(train_step, spans['train_step']), eval_step, opt
+  TT.make_episode_train_fns = timed_fns
+  evaluate = _timed(CL.evaluate_batched, spans['closed_loop'])
+
+  def evaluate_batched(*a, **k):
+    goal_launches.append(rk.raster_tiles.launches)
+    return evaluate(*a, **k)
+  CL.evaluate_batched = evaluate_batched
+  out = {'launches': {}, 'max_abs_err': 0.0, 'rates': {}}
+
+  def run(path, label, cli, argv):
+    """One CLI call with the raster-kernel and PSD-kernel counts set to 0
+    just before and read just after; the first launch of each batch size
+    held against the twin.  Returns (its result, wall seconds)."""
+    rk.raster_tiles.launches = 0
+    SP.psd_solve.launches = 0
+    t0 = time.perf_counter()
+    with checked_raster(rk, label, first_of_each_size=True) as chk:
+      res = cli.main(cli.parse(argv + ['--device', 'cuda', '--seed', '0']))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out['launches'][path] = rk.raster_tiles.launches
+    out['max_abs_err'] = max(out['max_abs_err'], chk['err'])
+    print(f'[cli] {label}: {wall:.1f} s, raster kernel launches '
+          f'{out["launches"][path]} (frames each: '
+          f'{sorted(set(chk["sizes"]))}), PSD kernel launches '
+          f'{SP.psd_solve.launches}', flush=True)
+    check(SP.psd_solve.launches == 0, f'{label}: the PSD kernel ran '
+          '(the CLIs build rolling-row envs: plain psd)')
+    return res, wall
+
+  if part == 'frames':
+    _cli_frames(run, out, spans, work)
+  else:
+    _cli_chain(run, out, spans, goal_launches, work)
+  total = time.perf_counter() - t_phase
+  print(f'[cli:{part}] rates on {card}, in a process of its own (in a full '
+        'run beside the replays, the other part of phase 12 and the main '
+        'process\'s untimed phases: a shared host): ' + ', '.join(
+            f'{k} {v:.4f}' for k, v in out['rates'].items()), flush=True)
+  print(f'[cli:{part}] took {total:.1f} s; raster launches by path '
+        f'{out["launches"]}', flush=True)
+  out['seconds'] = total
+  with open(summary_path, 'w') as f:
+    json.dump(out, f)
+
+
+def _cli_frames(run, out, spans, work):
+  """Phase 12, frame mode: CLI_FRAME_ENVS episodes of CLI_STEPS recorded
+  steps, one render a step; npz + pickle + TFRecord per episode."""
+  from geeco_tpu_torch.data.episode import load_episode
+  from geeco_tpu_torch.run import gym_pickplace
+  _, wall = run('collect_frames', 'collect (frames)', gym_pickplace, [
+      '--wrk_dir', work, '--sim_mode', 'collect',
+      '--dataset_formats', 'all', '--num_envs', str(CLI_FRAME_ENVS),
+      '--end_idx', str(CLI_FRAME_ENVS),
+      '--max_episode_steps', str(CLI_STEPS)])
+  n = out['launches']['collect_frames']
+  check(n == CLI_STEPS, f'frame collection launched the raster kernel {n} '
+        f'times, expected one a recorded step ({CLI_STEPS})')
+  out['rates'] = {'collect_frames_episodes_per_s': CLI_FRAME_ENVS / wall,
+                  'collect_frames_rollout_episodes_per_s':
+                  CLI_FRAME_ENVS / spans['rollout'][-1]}
+  coll = os.path.join(work, 'collect')
+  for i in range(1, CLI_FRAME_ENVS + 1):
+    name = f'replay_buffer_{i:04d}'
+    for f in (f'data/{name}.npz', f'data/{name}.json',
+              f'data/{name}.tfrecord.zlib', f'{name}.pkl'):
+      check(os.path.isfile(os.path.join(coll, f)), f'collect (frames) did '
+            f'not write {f}')
+  ep, ctx = load_episode(os.path.join(coll, 'data', 'replay_buffer_0001.npz'))
+  tf, tctx = load_episode(os.path.join(coll, 'data',
+                                       'replay_buffer_0001.tfrecord.zlib'))
+  check(ep['rgb'].shape == (CLI_STEPS, 256, 256, 3) and
+        ep['rgb'].dtype == np.uint8 and ep['step'].dtype == np.int32 and
+        ep['depth'].dtype == np.float32, 'frame episode keys: rgb '
+        f'{ep["rgb"].shape} {ep["rgb"].dtype}, step {ep["step"].dtype}')
+  check(all(np.array_equal(tf[k], ep[k]) for k in ('rgb', 'step', 'cmd')),
+        'the TFRecord and the npz of an episode disagree')
+  check(ctx['renderer_kwargs'] == tctx['renderer_kwargs'] == {} and
+        ctx['shapes'] == 'pad2-cube2', f'episode context {ctx}')
+
+
+def _cli_chain(run, out, spans, goal_launches, work):
+  """Phase 12, the chain: a state-only collect of CLI_ENVS episodes (one
+  chunk), the balanced split, 2 train steps at the bench point and an eval
+  pass, a resumed third step, the predictor, the batched controller."""
+  from geeco_tpu_torch.data.episode import load_episode
+  from geeco_tpu_torch.models import snapshots
+  from geeco_tpu_torch.models.params import load_model_config
+  from geeco_tpu_torch.models.predictor import GoalE2EVMCPredictor
+  from geeco_tpu_torch.models import train as TT
+  from geeco_tpu_torch.run import (dataset_tools, gym_pickplace, sim,
+                                   train_e2evmc)
+  rates = out['rates']
+  launches = out['launches']
+  # ---- collect, state only: the training set
+  _, wall = run('collect_states', 'collect (states)', gym_pickplace, [
+      '--wrk_dir', work, '--sim_mode', 'collect',
+      '--dataset_formats', 'states', '--rendering_mode', 'none',
+      '--num_envs', str(CLI_ENVS), '--end_idx', str(CLI_ENVS),
+      '--max_episode_steps', str(CLI_STEPS)])
+  check(launches.pop('collect_states') == 0, 'state-only collection '
+        'rendered')
+  rates['collect_states_episodes_per_s'] = CLI_ENVS / wall
+  rates['collect_states_rollout_episodes_per_s'] = (
+      CLI_ENVS / spans['rollout'][-1])
+  ds = os.path.join(work, 'collect')
+  ep, _ = load_episode(os.path.join(ds, 'data',
+                                    f'replay_buffer_{CLI_ENVS:04d}.npz'))
+  check('rgb' not in ep and ep['full_qpos'].shape[0] == CLI_STEPS and
+        ep['rgba'].dtype == np.float32, 'state-only episode keys')
+  # ---- split
+  dataset_tools.main(dataset_tools.parse(
+      ['create_splits', '--dataset_dir', ds, '--split_name', 'balanced']))
+  split = {}
+  for m in ('train', 'eval', 'test'):
+    with open(os.path.join(ds, 'splits', 'balanced', f'{m}.txt')) as f:
+      split[m] = f.read().split()
+  print(f'[cli] split: {", ".join(f"{m} {len(v)}" for m, v in split.items())}'
+        f' of {CLI_ENVS} episodes', flush=True)
+  check(len(split['train']) >= 2 * CLI_BATCH and
+        len(split['eval']) >= CLI_BATCH and len(split['test']) > 0,
+        'the split leaves too few episodes for 2 train steps and an eval '
+        'batch')
+  # ---- train at the bench point, 2 steps and an eval pass
+  model_dir = os.path.join(work, 'model')
+  targs = [
+      '--dataset_dir', ds, '--split_name', 'balanced', '--model_dir',
+      model_dir, '--goal_condition', 'target', '--proc_obs', 'dynimg',
+      '--proc_tgt', 'dyndiff', '--loss_weighting', 'cmd_mag',
+      '--start_boost', '6', '--lr', '2e-4', '--aug_shift', '10',
+      '--chunk_windows', '8', '--episodes_per_batch', str(CLI_BATCH),
+      '--num_epochs', '1', '--max_steps_per_epoch', '2', '--log_steps', '1']
+  ts1, _ = run('trainer_cli', 'train', train_e2evmc, targs)
+  n_eval = min(2, len(split['eval']) // CLI_BATCH)
+  per_step = 2   # one render of the B*T <= 100 frames, one of the goals
+  check(ts1.step == 2 and launches['trainer_cli'] == per_step * (2 + n_eval),
+        f'train: step {ts1.step}, {launches["trainer_cli"]} raster launches '
+        f'(expected 2 steps, {per_step * (2 + n_eval)} launches)')
+  rates['train_steps_per_s'] = 2 / sum(spans['train_step'])
+  for f in ('e2evmc_config.json', 'metrics.jsonl', 'ckpt-00000002.pt',
+            'state-00000002.pt', 'snapshots/snapshot_index.json',
+            'snapshots/snapshot-00000002/ckpt-00000002.pt',
+            'snapshots/snapshot-00000002/e2evmc_config.json'):
+    check(os.path.isfile(os.path.join(model_dir, f)),
+          f'train did not write {f}')
+  # ---- resume from state-00000002.pt for one more step
+  p0 = next(ts1.model.parameters())
+  m1 = {k: v.clone() for k, v in ts1.optimizer.state[p0].items()}
+  cfg = load_model_config(os.path.join(model_dir, 'e2evmc_config.json'))
+  saved = snapshots.restore_train_state(
+      os.path.join(model_dir, 'state-00000002.pt'),
+      TT.make_episode_train_fns(cfg, True, device='cuda')[0]())
+  check(all(torch.equal(a, b) for a, b in zip(
+      saved.model.state_dict().values(), ts1.model.state_dict().values())),
+      'state-00000002.pt does not restore the trainer\'s weights')
+  m_saved = saved.optimizer.state[next(saved.model.parameters())]
+  check(torch.equal(m_saved['exp_avg'], m1['exp_avg']) and
+        torch.equal(m_saved['exp_avg_sq'], m1['exp_avg_sq']) and
+        m_saved['exp_avg'].device == p0.device, 'state-00000002.pt does '
+        'not restore the Adam moments on the card')
+  del saved, m_saved
+  ts2, _ = run('trainer_cli_resume', 'train (resume)', train_e2evmc,
+               targs + ['--max_total_steps', '3'])
+  launches['trainer_cli'] += launches.pop('trainer_cli_resume')
+  m2 = ts2.optimizer.state[next(ts2.model.parameters())]
+  # Adam's moments continued: m2 = b1 m1 + (1 - b1) g and
+  # v2 = b2 v1 + (1 - b2) g^2 for the one gradient g of step 3
+  g = (m2['exp_avg'] - 0.9 * m1['exp_avg']) / 0.1
+  v_want = 0.999 * m1['exp_avg_sq'] + 0.001 * g * g
+  v_err = float((m2['exp_avg_sq'] - v_want).norm() /
+                m2['exp_avg_sq'].norm())
+  print(f'[cli] resume: step {ts1.step} -> {ts2.step}, Adam step '
+        f'{float(m1["step"]):.0f} -> {float(m2["step"]):.0f}; second moment '
+        f'of {tuple(p0.shape)} against its continuation: relative error '
+        f'{v_err:.3g} (tolerance 1e-3)', flush=True)
+  check(ts2.step == 3 and float(m2['step']) == 3.0,
+        'the resumed trainer did not continue at step 3')
+  check(v_err <= 1e-3, 'the resumed Adam moments do not continue the '
+        'first run\'s')
+  # ---- restore the checkpoint into the predictor
+  pred = GoalE2EVMCPredictor(model_dir, device='cuda')
+  check(all(torch.equal(a, b) for a, b in zip(
+      pred.model.state_dict().values(), ts2.model.state_dict().values())),
+      'the predictor\'s weights differ from the trainer\'s')
+  K, S = pred.cfg.window_size, pred.cfg.img_height
+  rng = np.random.RandomState(0)
+  frames = rng.rand(K, S, S, 3).astype(np.float32)
+  jnt = rng.randn(K, 7).astype(np.float32)
+  tgt = rng.rand(S, S, 3).astype(np.float32)
+  pred.set_goal(tgt)
+  for k in range(K):
+    res = pred.predict(frames[k], jnt[k])
+  as_t = lambda a: torch.as_tensor(a, device='cuda')[None]
+  with torch.no_grad():
+    ref, _ = ts2.model(as_t(frames), as_t(jnt), as_t(tgt), None, True)
+  rel = max(float(np.abs(res[k] - ref[h][0].float().cpu().numpy()).max() /
+                  max(float(ref[h].abs().max()), 1e-12))
+            for k, h in (('cmd_ee', 'pred_cmd_ee'), ('pos_ee', 'pred_aux_ee'),
+                         ('pos_obj', 'pred_aux_obj')))
+  print(f'[cli] predictor: weights equal to the trainer\'s bit for bit; '
+        f'predict on one window against the trainer model\'s forward: '
+        f'{rel:.3g} of the largest |value| (tolerance {BF16_REL:g})',
+        flush=True)
+  check(rel <= BF16_REL, 'the predictor disagrees with the trainer model')
+  del pred, ts1, ts2
+  # ---- the batched controller on the test split
+  ctrl_dir = os.path.join(work, 'controller')
+  n_test = len(split['test'])
+  run('controller', 'controller', gym_pickplace, [
+      '--wrk_dir', ctrl_dir, '--sim_mode', 'controller',
+      '--goal_condition', 'target', '--model_dir', model_dir,
+      '--dataset_dir', ds, '--split_name', 'balanced',
+      '--num_envs', str(CLI_CTRL_ENVS), '--max_episode_steps',
+      str(CLI_CL_STEPS)])
+  chunks = -(-n_test // CLI_CTRL_ENVS)
+  launches['controller_goal'] = goal_launches[0]
+  launches['controller_loop'] = launches.pop('controller') - goal_launches[0]
+  check(launches['controller_goal'] == -(-n_test // 64) and
+        launches['controller_loop'] == chunks * CLI_CL_STEPS,
+        f'controller: {launches["controller_goal"]} goal-frame and '
+        f'{launches["controller_loop"]} closed-loop raster launches, '
+        f'expected {-(-n_test // 64)} and {chunks * CLI_CL_STEPS}')
+  rates['controller_env_steps_per_s'] = (
+      chunks * CLI_CTRL_ENVS * CLI_CL_STEPS / sum(spans['closed_loop']))
+  out_dir = os.path.join(ctrl_dir, 'controller')
+  header, rows = _rows(os.path.join(out_dir, 'eval_results.csv'))
+  check(tuple(header) == sim.EVAL_FIELDS and len(rows) == n_test,
+        f'eval_results.csv: header {header}, {len(rows)} rows for {n_test} '
+        'test episodes')
+  header, rows = _rows(os.path.join(out_dir, 'triage_results.csv'))
+  check(tuple(header) == sim.TRIAGE_FIELDS and len(rows) == n_test,
+        f'triage_results.csv: {len(rows)} rows')
+  with open(os.path.join(out_dir, 'final_results.txt')) as f:
+    final = f.read().split('\n')
+  check([l.split('\t')[0] for l in final if l] ==
+        ['obj_vicinity', 'grasp_success', 'task_success'],
+        f'final_results.txt: {final}')
+  check(os.path.isfile(os.path.join(out_dir, 'triage_summary.txt')),
+        'no triage_summary.txt')
 
 
 def bound(nbytes: float, ops: float):
@@ -895,6 +1237,11 @@ def main():
                   help='phase 5 or phase 8 alone: the MuJoCo replay through '
                   'that slice\'s env (a full run starts both, a process '
                   'each)')
+  ap.add_argument('--cli-only', choices=CLI_PARTS, default='',
+                  help='one part of phase 12 alone: the command-line '
+                  'workflow on the card, its summary written to '
+                  'build/cli_smoke/<part>.json (a full run starts both, a '
+                  'process each)')
   args = ap.parse_args()
 
   # ---- 1. the card
@@ -952,12 +1299,22 @@ def main():
           'kernel')
     return
 
-  # ---- 5, 8. the two MuJoCo replays, a process each from here on; this
-  # process meanwhile does the work that times nothing (set-up, the kernel
-  # checks), and its timed phases wait for the replays' end and run alone
-  children = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                                '--replay-only', which])
+  if args.cli_only:
+    cli_phase(card, args.cli_only, cli_summary(args.cli_only))
+    return
+
+  # ---- 5, 8, 12. the two MuJoCo replays and the two parts of the
+  # command-line workflow, a process each from here on; this process
+  # meanwhile does the work that times nothing (set-up, the kernel checks),
+  # and its timed phases wait for their end and run alone
+  for part in CLI_PARTS:
+    if os.path.exists(cli_summary(part)):
+      os.remove(cli_summary(part))
+  me = [sys.executable, os.path.abspath(__file__)]
+  children = [subprocess.Popen(me + ['--replay-only', which])
               for which in ('slice1', 'slice2')]
+  children += [subprocess.Popen(me + ['--cli-only', part])
+               for part in CLI_PARTS]
   try:
     kernels = drive(card, children, args.profile)
   finally:
@@ -975,8 +1332,9 @@ def main():
 
 
 def drive(card, children, profile_path):
-  """Phases 3-4 and 6-7 beside the replays' processes `children` (phases 5
-  and 8); the timed part of phases 3, 4 and 7 after they have ended.
+  """Phases 3-4, 6-7 and 9-11 beside the processes `children` (the replays,
+  phases 5 and 8, and the two parts of the command-line workflow, phase
+  12); the timed part of phases 3, 4, 7, 10 and 11 after they have ended.
   Returns the kernels line."""
   from geeco_tpu_torch.envs.base import make_env
   from geeco_tpu_torch.expert import policies as EP
@@ -1116,9 +1474,17 @@ def drive(card, children, profile_path):
 
   # phases 5 and 8, the replays' processes; everything below is timed and
   # runs alone
-  for child, which in zip(children, ('slice-1', 'slice-2')):
+  for child, which in zip(children, ('slice-1 replay', 'slice-2 replay',
+                                     *(f'command-line workflow ({p})'
+                                       for p in CLI_PARTS))):
     rc = child.wait()
-    check(rc == 0, f'the {which} replay failed with exit code {rc}')
+    check(rc == 0, f'the {which} failed with exit code {rc}')
+  cli_launches = {}
+  for part in CLI_PARTS:
+    with open(cli_summary(part)) as f:
+      cli = json.load(f)
+    raster_err = max(raster_err, cli['max_abs_err'])
+    cli_launches.update(cli['launches'])
 
   # ---- 3c. the raster kernel's time on the frame planes and on the
   # random ones
@@ -1228,9 +1594,10 @@ def drive(card, children, profile_path):
       'name': 'raster_tiles', 'route': 'cuda',
       'source': 'geeco_tpu_torch/csrc/raster_tiles.cu',
       'replaces': 'geeco_tpu/render/rasterizer.py:778',
-      'launches': launches + train_launches + cl_launches,
+      'launches': (launches + train_launches + cl_launches +
+                   sum(cli_launches.values())),
       'launches_by_path': {'slice1': launches, 'trainer': train_launches,
-                           'closed_loop': cl_launches},
+                           'closed_loop': cl_launches, **cli_launches},
       'max_abs_err': raster_err,
       'ms': ms, 'plain_ms': plain_ms, 'bound_ms': raster_bound[0],
       'bound_by': raster_bound[1], 'library_ms': None,

@@ -26,16 +26,19 @@ rolling rows that ``rolling='auto'`` emits on every GEECO scene, 'pallas'
 runs the 'psd' iteration, as in the JAX package), ``rolling`` ('auto',
 True or False; ``rolling=False`` with ``solver_method='pallas'`` is the
 configuration that runs the fused kernel).
-``device`` defaults to the card: without one, construction raises unless
-``device='cpu'`` is passed.
+``start_sphere_r`` (0.03) is the radius of the ball the mocap start is
+drawn from by ``reset_random``.  ``renderer_kwargs`` passes ``shadows``,
+``tex_grid``, ``coarse_k`` and ``mid_k`` to ``build_renderer``; the JAX
+renderer's other options are not ported (they raise).  ``device`` defaults
+to the card: without one, construction raises unless ``device='cpu'`` is
+passed.
 
 ``render_from_qpos`` re-renders state-only frames (the trainer's render_fn).
 
 Not ported yet: the texture override of ``render`` and
 ``render_from_qpos``, the mesh-scene solver defaults (psd_block with quota
 contact selection), and the options ``contact_select_k``, ``hysteresis``,
-``contact_select``, ``mass_inverse``, ``start_sphere_r``,
-``renderer_kwargs`` and the TPU unroll levers.
+``contact_select``, ``mass_inverse`` and the TPU unroll levers.
 """
 
 from __future__ import annotations
@@ -104,7 +107,10 @@ ROBOT_XPOS0_PICK = np.array([1.3419, 0.7491, 0.555])
 ROBOT_XPOS0_PUSH = np.array([1.3419, 0.7491, 0.8])
 EE_QUAT = np.array([1.0, 0.0, 1.0, 0.0]) / np.sqrt(2.0)
 GRIPPER_CTRL = {-1: -0.005, 0: 0.0, 1: 0.05}
-START_SPHERE_R = 0.03   # mocap start sampled within this radius
+# the renderer options the port's build_renderer takes (the JAX package's
+# camera, tile, near/far, culling, backend and analytic-rect options are
+# constants here: ROADMAP Queue 1 items 7 and 19)
+RENDERER_OPTIONS = ('shadows', 'tex_grid', 'coarse_k', 'mid_k')
 
 # deterministic reset colours (pickplace.py:386-405)
 COLOR_MAP = {
@@ -172,6 +178,8 @@ class GeecoEnv:
                settle_steps: int = 10, solver_iterations: int = 60,
                solver_method: Optional[str] = None,
                collide_every: int = 1, rolling: str | bool = 'auto',
+               start_sphere_r: float = 0.03,
+               renderer_kwargs: Optional[dict] = None,
                device: str | torch.device | None = None):
     if not (rolling == 'auto' or isinstance(rolling, bool)):
       # any other string would be truthy downstream: rolling='off' would
@@ -181,6 +189,11 @@ class GeecoEnv:
     if solver_method is not None and solver_method not in METHODS:
       raise NotImplementedError(f'solver_method {solver_method!r} is not '
                                 f'ported (ported: {", ".join(METHODS)})')
+    unported = sorted(set(renderer_kwargs or {}) - set(RENDERER_OPTIONS))
+    if unported:
+      raise NotImplementedError(
+          f'renderer options {unported} are not ported (ported: '
+          f'{", ".join(RENDERER_OPTIONS)}; ROADMAP Queue 1 items 7, 19)')
     self.device = resolve_device(device)
     # physics is strict float32: no TF32 in the batched matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -203,13 +216,18 @@ class GeecoEnv:
     stepper = build_stepper(m, contact_select_k=contact_select_k,
                             rolling=rolling)
     h, w = frame_res
-    renderer = build_renderer(m, self.assets, width=w, height=h)
+    # kept for the dataset's meta: a state-only dataset is re-rendered at
+    # train time with the renderer that collected it
+    self.renderer_kwargs = dict(renderer_kwargs or {})
+    renderer = build_renderer(m, self.assets, width=w, height=h,
+                              **self.renderer_kwargs)
     self.model = m.to(self.device)
     self.stepper: Stepper = stepper._replace(model=self.model)
     self.renderer: Renderer = dataclasses.replace(renderer, model=self.model)
     self.solver_method = 'psd' if solver_method is None else solver_method
     self.collide_every = collide_every
     self.n_substeps = n_substeps
+    self.start_sphere_r = start_sphere_r
     self.settle_steps = settle_steps
     self.solver_iterations = solver_iterations
 
@@ -361,7 +379,7 @@ class GeecoEnv:
       qpos = set_joint_qpos(self.model, qpos, jname,
                             torch.cat([xy, z, quat], -1))
     mocap_pos = self._tensor(self.robot_xpos0) + \
-        spawn.sample_point_within_sphere(generator, START_SPHERE_R,
+        spawn.sample_point_within_sphere(generator, self.start_sphere_r,
                                          batch).to(self.device)
     phys = es.phys.replace(
         qpos=qpos, qvel=torch.zeros_like(es.phys.qvel),

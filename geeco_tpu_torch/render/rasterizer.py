@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,18 +77,22 @@ class Renderer:
 
 def build_renderer(model: Model, assets: Assets, width: int = 256,
                    height: int = 256, coarse_k: int = 512, mid_k: int = 192,
-                   shadows: bool = True) -> Renderer:
+                   shadows: bool = True, tex_grid: Optional[int] = None
+                   ) -> Renderer:
   """Compile the scene (numpy, from a model on the CPU) into a Renderer.
 
   The JAX package's defaults throughout: camera external_camera_1, 16-px
   fine tiles, znear 0.05, zfar 10, backface culling, tessellated
-  background (its ``analytic_rects=False``).
+  background (its ``analytic_rects=False``).  ``tex_grid``: the texel grid
+  of textured surfaces (None: the scene's default; 0: flat colours).
   """
   tile = 16
   if height % (tile * _COARSE) or width % (tile * _COARSE):
     raise ValueError(f'{width}x{height} is not a multiple of the '
                      f'{tile * _COARSE}-px coarse region')
-  scene = build_render_scene(model, assets, analytic_rects=False)
+  scene_kwargs = {} if tex_grid is None else {'tex_grid': tex_grid}
+  scene = build_render_scene(model, assets, analytic_rects=False,
+                             **scene_kwargs)
   # sky colour: mean of the builtin gradient skybox texture
   sky = (0.45, 0.86, 0.57)
   # arm-link capsule occluders: the invisible collision proxies double as

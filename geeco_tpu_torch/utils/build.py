@@ -13,6 +13,10 @@ kernel's loops and offsets are compile-time, and a new shape costs one nvcc
 run (a few seconds) at its first solve.  ``build_all`` builds several
 libraries at once, every nvcc started together.
 
+``load_native`` builds a host library from ``geeco_tpu_torch/native/`` with
+``g++ -O2 -shared -fPIC ... -lz`` (the TFRecord writer) into
+``build/native/``.
+
 Libraries go to ``build/kernels/`` at the root of the checkout (listed in
 .gitignore).  A file name carries a hash of its source and flags, so an
 edited source is rebuilt and a stale library is never loaded.  Nothing here
@@ -28,11 +32,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), 'build', 'kernels')
+NATIVE_DIR = os.path.join(os.path.dirname(_PKG), 'build', 'native')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
               '--fmad=false', '-std=c++17', '-Xptxas=-v', '-Xcompiler',
               '-fPIC')
@@ -153,3 +159,32 @@ def load_psd(spec: dict) -> ctypes.CDLL:
   """The PSD solve built for `spec` (see ``psd_library``), compiled at its
   first use and kept for the process."""
   return _load_psd(tuple(int(spec[k]) for k in PSD_KEYS))
+
+
+_NATIVE_LOCK = threading.Lock()
+
+
+def load_native(name: str) -> ctypes.CDLL:
+  """geeco_tpu_torch/native/<name>.cpp as a host library (g++, zlib), built
+  into ``build/native/`` at first use; raises with the compiler's output if
+  it does not build (there is no other writer to fall back on).  Safe to
+  call from several threads (the collect CLI's writers)."""
+  with _NATIVE_LOCK:
+    return _load_native(name)
+
+
+@functools.lru_cache(maxsize=None)
+def _load_native(name: str) -> ctypes.CDLL:
+  src = os.path.join(_PKG, 'native', f'{name}.cpp')
+  with open(src, 'rb') as f:
+    digest = hashlib.sha1(f.read()).hexdigest()[:12]
+  out = os.path.join(NATIVE_DIR, f'lib{name}_{digest}.so')
+  if not os.path.exists(out):
+    os.makedirs(NATIVE_DIR, exist_ok=True)
+    tmp = f'{out}.{os.getpid()}.tmp'
+    proc = subprocess.run(['g++', '-O2', '-shared', '-fPIC', '-o', tmp, src,
+                           '-lz'], capture_output=True, text=True)
+    if proc.returncode:
+      raise RuntimeError(f'g++ failed to build {src}:\n{proc.stderr}')
+    os.replace(tmp, out)
+  return ctypes.CDLL(out)

@@ -231,6 +231,10 @@ def test_port_import_leaves_jax_out_of_sys_modules():
           'import geeco_tpu_torch.utils.build; '
           'import geeco_tpu_torch.models.train; '
           'import geeco_tpu_torch.models.closed_loop; '
+          'import geeco_tpu_torch.models.predictor; '
+          'import geeco_tpu_torch.data.episode; '
+          'import geeco_tpu_torch.run.sim; '
+          'import geeco_tpu_torch.run.train_e2evmc; '
           'bad = [m for m in sys.modules if m.split(".")[0] in '
           '("jax", "flax", "optax", "geeco_tpu")]; print(bad); '
           'sys.exit(1 if bad else 0)')

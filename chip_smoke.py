@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch/CUDA port (geeco_tpu_torch) on one NVIDIA GPU.
 
   python3 chip_smoke.py [--profile OUT.txt] [--psd-phases]
-                        [--replay-only slice1|slice2] [--cli-only frames|chain]
+                        [--replay-only slice1|slice2|nutcone|clutter4]
+                        [--cli-only frames|chain] [--scenes-only]
 
 Drives the port's two paths at production settings on the card:
 
@@ -21,6 +22,11 @@ Drives the port's two paths at production settings on the card:
   slice 4: the command-line workflow (run/gym_pickplace.py collect and
            controller, run/dataset_tools.py, run/train_e2evmc.py, the
            predictor) on datasets it writes to build/cli_smoke/.
+  slice 5: every other GEECO scene on its production env: the clutter
+           scenes (the primitive pair kernels; psd with the top-K) and the
+           mesh scenes (the convex-hull narrowphase; psd_block with quota
+           selection), and slice 1's render with a background frame per
+           env (VideoCycler over a GIF, the texture override).
 
 Phases; any failure exits non-zero:
 
@@ -85,14 +91,37 @@ Phases; any failure exits non-zero:
      its launches counted per path; episodes/s, train steps/s and
      controller env-steps/s
 
-Phases 5 and 8, the two replays at B=1, and the two parts of phase 12 run
-in a process each (this script with --replay-only slice1|slice2 or
---cli-only frames|chain) from the build on: everything is host-bound and
-the card idles most of the time.  Meanwhile this process does what times
-nothing: the set-up of both slices, the kernel checks of phases 3 and 6,
-the CPU frame, phase 9 and the trainer's set-up and its warm-up step.  The
-timed parts of phases 3, 4, 7, 10 and 11 wait for those processes to end
-and run alone; phase 12's rates are taken beside them, on a shared host.
+  13. slice 5, every scene: (nutcone, clutter4) the MuJoCo replays of
+     tests/fixtures/mujoco_pickplace_{nutcone,pad2cube2clutter4}.npz at B=1
+     through reset_to + step of the production envs: the task object
+     within 30 mm, the objects MuJoCo shows moving within 30 mm (clutter4:
+     55 mm, its brushed piece), the static ones within 5 mm, the nut-cone
+     pick at task success; the solves counted by method; (scenes)
+     clutter12, bridge-pad and diamond-pad at 8 envs and ball-cup at 64,
+     two settle steps, one reset_random, a control step and a render:
+     finite, the objects above the table, the raster kernel against its
+     twin on the render, peak device memory; (this process) a render of
+     slice 1 with a background frame per env from a GIF: one raster launch
+     held against the twin, every env's wall changed and its table front
+     not; the PSD kernel on a substep's operands of clutter4 and nut-cone
+     at rolling=False, solver_method='pallas' (B=64, K=192 and K=224) held
+     against its twin, and the substep through each; alone, clutter4 and
+     nut-cone at B=64: control steps of step + render (env-steps/s, one
+     raster launch a render), one profiled control step (launches per
+     substep, device time), a control step of each pallas env (one PSD
+     launch a substep) and the PSD kernel's time at those shapes
+
+Phases 5 and 8, the two replays at B=1, the two replays of phase 13, the
+two parts of phase 12 and phase 13's other scenes run in a process each
+(this script with --replay-only slice1|slice2|nutcone|clutter4,
+--cli-only frames|chain or --scenes-only) from the build on: everything is
+host-bound and the card idles most of the time.  Meanwhile this process
+does what times nothing: the set-up of both slices, the kernel checks of
+phases 3 and 6, the CPU frame, phase 9, the trainer's set-up and its
+warm-up step, and phase 13's textured render, PSD checks and set-ups.  The
+timed parts of phases 3, 4, 7, 10, 11 and 13 wait for those processes to
+end and run alone; phase 12's rates are taken beside them, on a shared
+host.
 
 The line before the last two is a JSON object describing each kernel; then
 the card's name and power limit; the last line is {"ok": true, "device":
@@ -116,6 +145,7 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()   # this process's start: the [t=...] stamps
 FIXTURE = os.path.join(ROOT, 'tests', 'fixtures',
                        'mujoco_pickplace_pad2cube2.npz')
 # kernel vs twin: both evaluate (a*px + b*py) + c with rounded ops and no
@@ -143,12 +173,15 @@ WITNESS_MAX_FRAC = 0.125
 # float32 operations/s outside the tensor cores
 # the PSD solve's shapes (nI, nv, nE, K, nlim) and the cluster sizes they
 # are run in (None: the plan's own at B=3): pad2-cube2 with and without weld
-# rows, then one shape for each other way through the kernel (phase 6a)
+# rows, then one shape for each other way through the kernel (phase 6a;
+# the K=192 one is also clutter4's at rolling=False), then nut-cone's at
+# rolling=False, its K the sum of its quotas (phase 13)
 PSD_BUILDS = (((530, 39, 6, 128, 9), (1, 2, 4)),
               ((530, 39, 0, 128, 9), (1, 2, 4)),
               ((274, 45, 6, 64, 9), (1,)),
               ((786, 63, 6, 192, 9), (None,)),
-              ((1298, 87, 6, 320, 9), (None,)))
+              ((1298, 87, 6, 320, 9), (None,)),
+              ((914, 39, 6, 224, 9), (None,)))
 HBM_RATE = 3.35e12
 FP32_RATE = 67e12
 # slice 3: the trainer at bench.py's point (bench.py:190-203): B episodes of
@@ -179,6 +212,35 @@ CLI_BATCH, CLI_CTRL_ENVS, CLI_CL_STEPS = 8, 16, 5
 SMALL_LOSS_RTOL = 1e-4
 SMALL_GRAD_REL = 3e-3
 SMALL_GRAD_MEDIAN = 1e-4
+# phase 13, every scene.  The MuJoCo replays of nut-cone and clutter4 on
+# their production envs at B=1 (a process each): the task object within
+# DRIFT_LIMIT, the objects MuJoCo shows moving (more than 5 mm) within
+# their scene's limit (one brushed clutter piece rolls near-chaotically:
+# 55 mm, tests/test_replay_parity.py:96-103), the others within
+# STATIC_LIMIT; REPLAY_STEPS cuts a replay (None: whole).  clutter4 runs
+# its first 50 steps (approach, grasp, lift), held to the drift limits
+# alone: whole, beside the nut-cone replay, the script took 1182 s of its
+# 1200 (its replay 387 s; PERF.md)
+REPLAYS = {'nutcone': ('nut-cone', 'mujoco_pickplace_nutcone.npz', 0.03),
+           'clutter4': ('pad2-cube2-clutter4',
+                        'mujoco_pickplace_pad2cube2clutter4.npz', 0.055)}
+REPLAY_STEPS = {'nutcone': None, 'clutter4': 50}
+STATIC_LIMIT = 0.005
+# the other four new scenes, a process: SCENE_ENVS envs, SCENE_SETTLE
+# settle steps, one reset_random, one control step and a render each
+SCENES_ONLY = ('pad2-cube2-clutter12', 'ball-cup', 'bridge-pad',
+               'diamond-pad')
+SCENE_ENVS, SCENE_SETTLE = 8, 2
+SCENE_BATCH = {'ball-cup': ENVS}   # its peak memory at the full batch
+SCENES_SUMMARY = os.path.join(ROOT, 'build', 'scenes_smoke.json')
+# in this process: clutter4 and nut-cone at ENVS envs (settle steps cut to
+# SCENE_SETTLE: the set-ups run beside the replays), SCENE_STEPS timed
+# control steps of step + render; their K2 operands at rolling=False,
+# solver_method='pallas'; a textured render of slice 1 with a background
+# frame per env from a GIF written here
+TIMED_SCENES = ('pad2-cube2-clutter4', 'nut-cone')
+SCENE_STEPS = 3
+BACKGROUND_GIF = os.path.join(ROOT, 'build', 'chip_smoke_background.gif')
 
 
 def fail(msg: str):
@@ -329,11 +391,15 @@ def profile_step(fn, label, card, path='', top=0):
     fn()
     torch.cuda.synchronize()
   wall = time.perf_counter() - t0
-  events = prof.key_averages()
-  launches = sum(e.count for e in events
-                 if e.key.startswith(('cudaLaunchKernel', 'cuLaunchKernel')))
-  spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
+  # one pass over the events (key_averages() is another, as long, and is
+  # built only for the tables)
+  launches, spans = 0, []
+  for e in prof.events():
+    if e.device_type == DeviceType.CUDA:
+      spans.append((e.time_range.start, e.time_range.end))
+    elif e.name.startswith(('cudaLaunchKernel', 'cuLaunchKernel')):
+      launches += 1
+  spans.sort()
   device_us, reach = 0.0, float('-inf')
   for start, end in spans:
     device_us += max(0.0, end - max(start, reach))
@@ -341,7 +407,9 @@ def profile_step(fn, label, card, path='', top=0):
   device_ms = device_us / 1e3
   print(f'[profile] {label}: {launches} kernel launches, device time '
         f'{device_ms:.1f} ms ({len(spans)} device events), wall {wall:.2f} s '
-        f'(profiled) on {card}', flush=True)
+        f'(profiled; then {time.perf_counter() - t0 - wall:.1f} s to read '
+        f'the events) on {card}', flush=True)
+  events = prof.key_averages() if top or path else None
   if top:
     kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)[:top]
@@ -992,13 +1060,15 @@ def within(got, ref, rtol, atol, label):
   return float(diff.max()), max_rel
 
 
-def replay(env, label, steps=None):
+def replay(env, label, steps=None, fixture=FIXTURE, moved_limit=None):
   """The recorded MuJoCo pick episode through reset_to + step at B=1: task
   success and the task object within DRIFT_LIMIT.  With `steps`, only that
-  many control steps of it, held to the drift limit alone (success shows
-  at the episode's end).  Returns the drift (m)."""
+  many control steps of it, held to the drift limits alone (success shows
+  at the episode's end).  With `moved_limit`, the other objects too: those
+  the MuJoCo trace shows moving (more than 5 mm) within it, the rest
+  within STATIC_LIMIT.  Returns the task object's drift (m)."""
   from geeco_tpu_torch.envs.base import ResetSpec
-  fx = np.load(FIXTURE)
+  fx = np.load(fixture)
   obj = fx['init_obj_qpos'].copy()
   obj[:, 2] -= 0.025   # reset_to re-adds the table-height adjust
   spec = ResetSpec(obj_qpos=torch.as_tensor(obj)[None],
@@ -1018,7 +1088,8 @@ def replay(env, label, steps=None):
   drift = np.linalg.norm(trace - fx['obj_pos_trace'][:len(cmds)],
                          axis=-1).max(axis=0)
   print(f'[{label}] {len(cmds)} of {len(fx["cmds"])} steps replayed in '
-        f'{time.perf_counter() - t0:.1f} s (beside the other processes): '
+        f'{time.perf_counter() - t0:.1f} s (beside the other processes; '
+        f'[t={time.perf_counter() - T_START:.0f} s]): '
         f'task_success {m["task_success"]}, goal_dist {m["goal_dist"]:.4f} '
         f'(MuJoCo {float(fx["final_goal_dist"]):.4f}), task-object drift '
         f'{drift[0] * 1000:.2f} mm', flush=True)
@@ -1027,7 +1098,108 @@ def replay(env, label, steps=None):
         f'{label}: the replayed pick did not succeed')
   check(drift[0] < DRIFT_LIMIT, f'{label}: task-object drift '
         f'{drift[0]:.4f} m >= {DRIFT_LIMIT} m')
+  if moved_limit is not None:
+    mj = fx['obj_pos_trace'][:len(cmds)]
+    moved = np.linalg.norm(mj - mj[:1], axis=-1).max(axis=0) > 0.005
+    moved[0] = False                      # the task object, held above
+    static = ~moved
+    static[0] = False
+    print(f'[{label}] drift per object (mm): ' + ', '.join(
+        f'{str(j).split(":")[0]} {d * 1000:.2f}'
+        f'{" (moved)" if mv else ""}' for j, d, mv in
+        zip(fx['obj_joint_names'], drift, moved)), flush=True)
+    worst_moved = float(drift[moved].max(initial=0.0))
+    worst_static = float(drift[static].max(initial=0.0))
+    check(worst_moved < moved_limit, f'{label}: a moved object drifted '
+          f'{worst_moved:.4f} m >= {moved_limit} m')
+    check(worst_static < STATIC_LIMIT, f'{label}: a static object drifted '
+          f'{worst_static:.4f} m >= {STATIC_LIMIT} m')
   return float(drift[0])
+
+
+def scene_replay(which):
+  """Phase 13's replays (``--replay-only nutcone|clutter4``): the MuJoCo
+  fixture through the scene's production env (nut-cone: psd_block with
+  quota selection; clutter4: psd with the top-192) at B=1, counting the
+  solves of each method."""
+  from geeco_tpu_torch.envs.base import make_env
+  from geeco_tpu_torch.physics import solver as S
+  shapes, fixture, moved_limit = REPLAYS[which]
+  env = make_env(shapes, device='cuda')
+  solves = {}
+  solve = S.solve
+
+  def counted(*a, method='psd', **k):
+    solves[method] = solves.get(method, 0) + 1
+    return solve(*a, method=method, **k)
+  S.solve = counted
+  try:
+    replay(env, f'fidelity:{which}', steps=REPLAY_STEPS[which],
+           fixture=os.path.join(ROOT, 'tests', 'fixtures', fixture),
+           moved_limit=moved_limit)
+  finally:
+    S.solve = solve
+  print(f'[fidelity:{which}] {shapes}: solver {env.solver_method}, '
+        f'{"quota" if env.stepper.cs.quota_sel else "top-K"} selection of '
+        f'K={env.stepper.cs.ncon_sel}; solves by method {solves}',
+        flush=True)
+  check(solves.get(env.solver_method, 0) > 0 and len(solves) == 1,
+        f'{which}: the replay ran solves {solves}, expected '
+        f'{env.solver_method} only')
+
+
+def scenes_phase(card):
+  """Phase 13's other scenes (``--scenes-only``): SCENE_ENVS envs (ball-cup:
+  ENVS) of each of SCENES_ONLY on its production env (settle steps cut to
+  SCENE_SETTLE),
+  one reset_random, one control step and a render: a finite state, the
+  objects above the floor, the raster kernel against its twin on the
+  render, the peak device memory.  Writes the launches, the kernel's
+  max_abs_err and the peaks to SCENES_SUMMARY."""
+  from geeco_tpu_torch.envs.base import make_env
+  from geeco_tpu_torch.render import raster_kernel as rk
+  dev = torch.device('cuda')
+  out = {'launches': {}, 'max_abs_err': 0.0, 'peak_gib': {}}
+  for shapes in SCENES_ONLY:
+    B = SCENE_BATCH.get(shapes, SCENE_ENVS)
+    action = torch.tensor([0.2, -0.1, -0.3, 1.0], device=dev).expand(B, 4)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    env = make_env(shapes, device='cuda', settle_steps=SCENE_SETTLE)
+    es = env.reset_random(B, torch.Generator(device=dev).manual_seed(3))
+    rk.raster_tiles.launches = 0
+    with checked_raster(rk, shapes) as chk:
+      es = env.step(es, action)
+      rgb, depth = env.render(es)
+    torch.cuda.synchronize()
+    launches = rk.raster_tiles.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    m = env.model
+    z = torch.stack([es.phys.qpos[:, m.jnt_qposadr[m.joint(j)] + 2]
+                     for j in env.obj_joint_names], -1)
+    print(f'[scenes] {shapes}: {env.solver_method}, K='
+          f'{env.stepper.cs.ncon_sel} of {env.stepper.cs.ncon} candidates, '
+          f'B={B}: set-up, reset, a control step and a render in '
+          f'{time.perf_counter() - t0:.1f} s; object heights '
+          f'{float(z.min()):.4f}..{float(z.max()):.4f} m; raster launches '
+          f'{launches}; peak device memory {peak:.2f} GiB on {card}',
+          flush=True)
+    check(bool(torch.isfinite(es.phys.qpos).all() and
+               torch.isfinite(es.phys.qvel).all()),
+          f'{shapes}: non-finite state')
+    check(bool(((z > 0.2) & (z < 0.4)).all()),
+          f'{shapes}: an object is not above the table')
+    check(rgb.shape == (B, 256, 256, 3) and
+          bool(torch.isfinite(depth).all()), f'{shapes}: bad frame')
+    check(launches == 1, f'{shapes}: {launches} raster launches for one '
+          'render')
+    out['launches'][shapes] = launches
+    out['max_abs_err'] = max(out['max_abs_err'], chk['err'])
+    out['peak_gib'][shapes] = peak
+    del env, es, rgb, depth
+    torch.cuda.empty_cache()
+  with open(SCENES_SUMMARY, 'w') as f:
+    json.dump(out, f)
 
 
 def capture_solve(env, es, SP):
@@ -1225,6 +1397,198 @@ def random_planes(B, n_tiles, K, tile, gen):
   return [x0, y0, x1, y1, x2, y2, iz0, iz1, iz2, ok, colp]
 
 
+def k2_scene_checks(SP, dev):
+  """Phase 13, untimed: the PSD kernel on clutter4's and nut-cone's real
+  operands.  Each scene's env at rolling=False, solver_method='pallas'
+  (ngrp=4, nut-cone's K the sum of its quotas), ENVS envs one control step
+  past reset_random; the kernel against its twin on one substep's
+  operands, and the substep through each.  Returns {scene: (env, state,
+  operands, max_abs_err)}."""
+  from geeco_tpu_torch.envs.base import make_env
+  out = {}
+  for shapes in TIMED_SCENES:
+    t0 = time.perf_counter()
+    env = make_env(shapes, device='cuda', rolling=False,
+                   solver_method='pallas', settle_steps=SCENE_SETTLE)
+    check(env.stepper.cs.ngrp == 4, f'{shapes}: ngrp '
+          f'{env.stepper.cs.ngrp} at rolling=False')
+    es = env.reset_random(ENVS, torch.Generator(device=dev).manual_seed(4))
+    es = env.step(es, torch.zeros(ENVS, 4, device=dev))
+    ops = capture_solve(env, es, SP)
+    lay = SP.plan(*ops['J'].shape, ops['A_IE'].shape[2], ops['K'])
+    print(f'[psd:{shapes}] operands of one substep: B={ops["J"].shape[0]}, '
+          f'nI={ops["J"].shape[1]}, nv={ops["J"].shape[2]}, nE='
+          f'{ops["A_IE"].shape[2]}, K={ops["K"]}, nlim={ops["nlim"]}; plan '
+          f'{lay}; set up in {time.perf_counter() - t0:.1f} s (beside the '
+          'replay processes)', flush=True)
+    f_k = SP.psd_solve(**ops)
+    check(bool(torch.isfinite(f_k).all()), f'{shapes}: PSD forces not '
+          'finite')
+    err, _ = within(f_k, SP.psd_solve_reference(**ops),
+                    label=f'psd:{shapes} forces', **FORCE_TOL)
+    sub_k = env.stepper.substep(es.phys, env.solver_iterations, 'pallas')
+    real = SP.psd_solve
+    SP.psd_solve = SP.psd_solve_reference   # the substep through the twin
+    try:
+      sub_r = env.stepper.substep(es.phys, env.solver_iterations, 'pallas')
+    finally:
+      SP.psd_solve = real
+    within(sub_k.qvel, sub_r.qvel, label=f'psd:{shapes} substep qvel',
+           **QVEL_TOL)
+    out[shapes] = (env, es, ops, err)
+  return out
+
+
+def scene_envs_setup(rk, dev):
+  """Phase 13, untimed: clutter4 and nut-cone on their production envs at
+  ENVS envs, reset_random, the first render held against the twin.
+  Returns ({scene: (env, state)}, the kernel's max_abs_err)."""
+  from geeco_tpu_torch.envs.base import make_env
+  out, err = {}, 0.0
+  for shapes in TIMED_SCENES:
+    t0 = time.perf_counter()
+    env = make_env(shapes, device='cuda', settle_steps=SCENE_SETTLE)
+    es = env.reset_random(ENVS, torch.Generator(device=dev).manual_seed(5))
+    with checked_raster(rk, shapes) as chk:
+      env.render(es)
+    err = max(err, chk['err'])
+    print(f'[scenes] {shapes}: {env.solver_method}, '
+          f'{"quota" if env.stepper.cs.quota_sel else "top-K"} selection of '
+          f'K={env.stepper.cs.ncon_sel}, set up and reset at B={ENVS} in '
+          f'{time.perf_counter() - t0:.1f} s (beside the replay processes)',
+          flush=True)
+    out[shapes] = (env, es)
+  return out, err
+
+
+def write_background_gif(path):
+  """A 12-frame GIF of moving colour bands, written with Pillow."""
+  from PIL import Image
+  os.makedirs(os.path.dirname(path), exist_ok=True)
+  yy, xx = np.mgrid[0:48, 0:64]
+  frames = []
+  for i in range(12):
+    band = ((xx + 4 * i) // 8 + yy // 12) % 3
+    img = np.zeros((48, 64, 3), np.uint8)
+    img[..., 0] = np.where(band == 0, 230, 20)
+    img[..., 1] = np.where(band == 1, 200, 30 + 15 * i)
+    img[..., 2] = np.where(band == 2, 240, 10)
+    frames.append(Image.fromarray(img))
+  frames[0].save(path, save_all=True, append_images=frames[1:])
+
+
+def textured_render(env, es, rk, card):
+  """Phase 13, untimed: slice 1's frames with a background frame per env
+  from a VideoCycler over a GIF: one raster launch, held against the twin;
+  every env's wall changes and the table front does not.  Returns
+  (launches, max_abs_err)."""
+  from geeco_tpu_torch.data.videos import VideoCycler
+  write_background_gif(BACKGROUND_GIF)
+  cycler = VideoCycler(BACKGROUND_GIF)
+  frames = cycler.texel_steps(ENVS, env.renderer.scene.tex_res)
+  tex = env.background_textures(frames)           # [B, S, R, R, 3]
+  plain, _ = env.render(es)
+  rk.raster_tiles.launches = 0
+  with checked_raster(rk, 'textured') as chk:
+    rgb, _ = env.render(es, textures=tex)
+  torch.cuda.synchronize()
+  launches = rk.raster_tiles.launches
+  changed = (plain != rgb).any(-1)                # [B, H, W]
+  share = changed.float().mean((1, 2))
+  print(f'[textured] B={ENVS}, a background frame per env from a GIF '
+        f'through VideoCycler: {launches} raster launch; '
+        f'pixels changed per env {float(share.min()):.4f}..'
+        f'{float(share.max()):.4f}; bottom 32 rows changed '
+        f'{int(changed[:, -32:].sum())} on {card}', flush=True)
+  check(launches == 1, f'{launches} raster launches for one render')
+  check(bool((share > 0.05).all()), 'a textured frame shows no wall')
+  check(not bool(changed[:, -32:].any()), 'the background texture reached '
+        'the table front')
+  return launches, chk['err']
+
+
+def time_scenes(scene_envs, rk, SP, card, dev):
+  """Phase 13b, alone: SCENE_STEPS control steps of step + render of each
+  timed scene at ENVS envs (env-steps/s, the raster launches, a finite
+  state, the objects above the floor), then one profiled substep and one
+  profiled render (launches per substep, device time per control step).
+  Returns the raster launches by scene."""
+  out = {}
+  action = torch.tensor([0.1, 0.0, -0.2, 1.0], device=dev).expand(ENVS, 4)
+  for shapes, (env, es) in scene_envs.items():
+    rk.raster_tiles.launches = 0
+    SP.psd_solve.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SCENE_STEPS):
+      es = env.step(es, action)
+      rgb, depth = env.render(es)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out[shapes] = rk.raster_tiles.launches
+    m = env.model
+    z = torch.stack([es.phys.qpos[:, m.jnt_qposadr[m.joint(j)] + 2]
+                     for j in env.obj_joint_names], -1)
+    print(f'[scenes] {shapes}: {SCENE_STEPS} control steps (step + render) '
+          f'at B={ENVS}: {dt:.3f} s -> {ENVS * SCENE_STEPS / dt:.2f} '
+          f'env-steps/s on {card}; raster launches {out[shapes]}, PSD '
+          f'kernel launches {SP.psd_solve.launches}; object heights '
+          f'{float(z.min()):.4f}..{float(z.max()):.4f} m', flush=True)
+    check(out[shapes] == SCENE_STEPS, f'{shapes}: the raster kernel did '
+          'not run once per render')
+    check(SP.psd_solve.launches == 0, f'{shapes}: the PSD kernel ran on '
+          'the production (rolling-row) env')
+    check(bool(torch.isfinite(es.phys.qpos).all()) and
+          bool(torch.isfinite(depth).all()), f'{shapes}: non-finite state '
+          'or frame')
+    check(bool(((z > 0.2) & (z < 0.4)).all()),
+          f'{shapes}: an object is not above the table')
+    # a substep and a render profiled apart: a whole control step is ~20x
+    # the events, and the profiler's processing of them outlasts the step
+    n, sub_ms, _ = profile_step(
+        lambda: env.stepper.substep(es.phys, env.solver_iterations,
+                                    env.solver_method, env.hysteresis),
+        f'{shapes}, one substep, B={ENVS}', card)
+    n_r, render_ms, _ = profile_step(lambda: env.render(es),
+                                     f'{shapes}, one render, B={ENVS}', card)
+    print(f'[scenes] {shapes}: {n} launches per substep, device time '
+          f'{sub_ms:.1f} ms a substep, {render_ms:.1f} ms a render '
+          f'({n_r} launches): ~{env.n_substeps * sub_ms + render_ms:.1f} ms '
+          f'per control step on {card}', flush=True)
+    del rgb, depth
+  return out
+
+
+def time_k2_scenes(k2_scenes, SP, card, dev):
+  """Phase 13b, alone: one control step of each pallas scene env (one
+  PSD-kernel launch per substep), then the kernel's time on the captured
+  operands against its twin and its bound.  Returns (launches by path,
+  times by shape)."""
+  paths, shapes_out = {}, {}
+  for shapes, (env, es, ops, _) in k2_scenes.items():
+    SP.psd_solve.launches = 0
+    es = env.step(es, torch.zeros(ENVS, 4, device=dev))
+    torch.cuda.synchronize()
+    paths[f'{shapes} pallas'] = SP.psd_solve.launches
+    check(SP.psd_solve.launches == env.n_substeps,
+          f'{shapes}: {SP.psd_solve.launches} PSD launches in a control '
+          f'step of {env.n_substeps} substeps')
+    ms = cuda_ms(lambda: SP.psd_solve(**ops), 30, queued=True)
+    plain_ms = cuda_ms(lambda: SP.psd_solve_reference(**ops), 3)
+    bnd = bound(*psd_work(ops))
+    lay = SP.plan(*ops['J'].shape, ops['A_IE'].shape[2], ops['K'])
+    print(f'[psd:{shapes}] kernel {ms:.4f} ms ({lay}), plain twin '
+          f'{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]}; '
+          f'{paths[f"{shapes} pallas"]} launches in a control step on '
+          f'{card}', flush=True)
+    check(ms >= bnd[0], f'{shapes}: PSD kernel time under its bound')
+    shapes_out[shapes] = {
+        'nI': ops['J'].shape[1], 'nv': ops['J'].shape[2], 'K': ops['K'],
+        'cluster': lay['cluster'], 'ms': ms, 'plain_ms': plain_ms,
+        'bound_ms': bnd[0], 'bound_by': bnd[1]}
+  return paths, shapes_out
+
+
 def main():
   ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   ap.add_argument('--profile', default='',
@@ -1233,16 +1597,25 @@ def main():
   ap.add_argument('--psd-phases', action='store_true',
                   help='only build the PSD kernel with its phase counters '
                   'and print the cycles of each phase per cluster size')
-  ap.add_argument('--replay-only', choices=('slice1', 'slice2'), default='',
-                  help='phase 5 or phase 8 alone: the MuJoCo replay through '
-                  'that slice\'s env (a full run starts both, a process '
-                  'each)')
+  ap.add_argument('--replay-only',
+                  choices=('slice1', 'slice2', *REPLAYS), default='',
+                  help='phase 5, 8 or one replay of phase 13 alone: the '
+                  'MuJoCo replay through that slice\'s or scene\'s env (a '
+                  'full run starts each, a process each)')
+  ap.add_argument('--scenes-only', action='store_true',
+                  help='phase 13\'s four other scenes alone, their summary '
+                  'written to build/scenes_smoke.json (a full run starts '
+                  'it, a process)')
   ap.add_argument('--cli-only', choices=CLI_PARTS, default='',
                   help='one part of phase 12 alone: the command-line '
                   'workflow on the card, its summary written to '
                   'build/cli_smoke/<part>.json (a full run starts both, a '
                   'process each)')
   args = ap.parse_args()
+  if args.replay_only or args.cli_only or args.scenes_only:
+    # a child of a full run, beside six others on the host's cores: its
+    # host work is launches, not CPU operators
+    torch.set_num_threads(1)
 
   # ---- 1. the card
   if not torch.cuda.is_available():
@@ -1299,22 +1672,29 @@ def main():
           'kernel')
     return
 
+  if args.replay_only in REPLAYS:
+    scene_replay(args.replay_only)
+    return
   if args.cli_only:
     cli_phase(card, args.cli_only, cli_summary(args.cli_only))
+    return
+  if args.scenes_only:
+    scenes_phase(card)
     return
 
   # ---- 5, 8, 12. the two MuJoCo replays and the two parts of the
   # command-line workflow, a process each from here on; this process
   # meanwhile does the work that times nothing (set-up, the kernel checks),
   # and its timed phases wait for their end and run alone
-  for part in CLI_PARTS:
-    if os.path.exists(cli_summary(part)):
-      os.remove(cli_summary(part))
+  for path in [cli_summary(part) for part in CLI_PARTS] + [SCENES_SUMMARY]:
+    if os.path.exists(path):
+      os.remove(path)
   me = [sys.executable, os.path.abspath(__file__)]
   children = [subprocess.Popen(me + ['--replay-only', which])
-              for which in ('slice1', 'slice2')]
+              for which in ('slice1', 'slice2', *REPLAYS)]
   children += [subprocess.Popen(me + ['--cli-only', part])
                for part in CLI_PARTS]
+  children.append(subprocess.Popen(me + ['--scenes-only']))
   try:
     kernels = drive(card, children, args.profile)
   finally:
@@ -1472,19 +1852,36 @@ def drive(card, children, profile_path):
   *trainer, train_err = trainer_setup(env, card)
   raster_err = max(raster_err, train_err)
 
+  # ---- 13a. every scene, untimed: a textured render of slice 1; the PSD
+  # kernel on clutter4's and nut-cone's operands; both scenes' production
+  # envs set up
+  tex_launches, e = textured_render(env, es, rk, card)
+  raster_err = max(raster_err, e)
+  k2_scenes = k2_scene_checks(SP, dev)
+  psd_err = max([psd_err] + [v[3] for v in k2_scenes.values()])
+  scene_envs, e = scene_envs_setup(rk, dev)
+  raster_err = max(raster_err, e)
+
   # phases 5 and 8, the replays' processes; everything below is timed and
   # runs alone
   for child, which in zip(children, ('slice-1 replay', 'slice-2 replay',
+                                     *(f'{r} replay' for r in REPLAYS),
                                      *(f'command-line workflow ({p})'
-                                       for p in CLI_PARTS))):
+                                       for p in CLI_PARTS),
+                                     'other scenes')):
     rc = child.wait()
     check(rc == 0, f'the {which} failed with exit code {rc}')
+    print(f'[children] the {which} ended by t='
+          f'{time.perf_counter() - T_START:.0f} s', flush=True)
   cli_launches = {}
   for part in CLI_PARTS:
     with open(cli_summary(part)) as f:
       cli = json.load(f)
     raster_err = max(raster_err, cli['max_abs_err'])
     cli_launches.update(cli['launches'])
+  with open(SCENES_SUMMARY) as f:
+    scenes = json.load(f)
+  raster_err = max(raster_err, scenes['max_abs_err'])
 
   # ---- 3c. the raster kernel's time on the frame planes and on the
   # random ones
@@ -1590,14 +1987,26 @@ def drive(card, children, profile_path):
           f'on {card}', flush=True)
   profile_step(lambda: k2env.step(es2, torch.zeros(ENVS, 4, device=dev)),
                f'slice 2, one control step, B={ENVS}', card)
+  del k2env, es2
+
+  # ---- 13b. clutter4 and nut-cone at B=ENVS, alone: control steps of
+  # step + render, one profiled; the PSD kernel on their pallas envs
+  scene_launches = time_scenes(scene_envs, rk, SP, card, dev)
+  del scene_envs
+  psd_paths, psd_shapes = time_k2_scenes(k2_scenes, SP, card, dev)
+  del k2_scenes
   return [{
       'name': 'raster_tiles', 'route': 'cuda',
       'source': 'geeco_tpu_torch/csrc/raster_tiles.cu',
       'replaces': 'geeco_tpu/render/rasterizer.py:778',
       'launches': (launches + train_launches + cl_launches +
-                   sum(cli_launches.values())),
+                   sum(cli_launches.values()) + tex_launches +
+                   sum(scenes['launches'].values()) +
+                   sum(scene_launches.values())),
       'launches_by_path': {'slice1': launches, 'trainer': train_launches,
-                           'closed_loop': cl_launches, **cli_launches},
+                           'closed_loop': cl_launches, **cli_launches,
+                           'textured': tex_launches, **scenes['launches'],
+                           **scene_launches},
       'max_abs_err': raster_err,
       'ms': ms, 'plain_ms': plain_ms, 'bound_ms': raster_bound[0],
       'bound_by': raster_bound[1], 'library_ms': None,
@@ -1605,9 +2014,12 @@ def drive(card, children, profile_path):
       'name': 'psd_solve', 'route': 'cuda',
       'source': 'geeco_tpu_torch/csrc/psd_solve.cu',
       'replaces': 'geeco_tpu/physics/solver_pallas.py:130',
-      'launches': psd_launches, 'max_abs_err': psd_err,
+      'launches': psd_launches + sum(psd_paths.values()),
+      'launches_by_path': {'slice2': psd_launches, **psd_paths},
+      'max_abs_err': psd_err,
       'ms': psd_ms, 'plain_ms': psd_plain_ms, 'bound_ms': psd_bound[0],
       'bound_by': psd_bound[1], 'library_ms': None,
+      'by_shape': psd_shapes,
   }]
 
 

@@ -196,10 +196,12 @@ class Model(_Tensors):
     The static structure (index arrays, masks) is numpy, computed once per
     scene; this keeps one device copy of each so the hot path issues no
     host-to-device copy.  Integer arrays become int64 (index dtype).
+    ``value`` may be a function that makes the array, called only when
+    ``key`` is not cached yet.
     """
     t = self._consts.get(key)
     if t is None:
-      arr = np.asarray(value)
+      arr = np.asarray(value() if callable(value) else value)
       if arr.dtype.kind in 'iu':
         arr = arr.astype(np.int64)
       t = torch.as_tensor(arr, device=self.device)

@@ -69,9 +69,6 @@ def make_record_fn(env: GeecoEnv, with_frames: bool = True,
 
   def record(env_, es: EnvState, action: torch.Tensor, xs,
              textures=None) -> Dict[str, torch.Tensor]:
-    if textures is not None:
-      raise NotImplementedError('per-step background textures are not '
-                                'ported (ROADMAP Queue 1 item 17)')
     phys = es.phys
     rec = {
         'step': es.ts.to(torch.int32),
@@ -82,7 +79,11 @@ def make_record_fn(env: GeecoEnv, with_frames: bool = True,
     if with_state:
       rec['full_qpos'] = phys.qpos
     if with_frames:
-      rgb, depth = env.render(es)
+      # ``textures``: this step's background frame [R, R, 3] (or one per
+      # env), put on the camera-facing wall
+      tex = env.background_textures(textures) if textures is not None \
+          else None
+      rgb, depth = env.render(es, textures=tex)
       rec['rgb'] = rgb
       if with_depth:
         rec['depth'] = depth.to(torch.float32)

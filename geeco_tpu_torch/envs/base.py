@@ -20,25 +20,29 @@ Behavioural contract (as the JAX package, after the reference gym envs):
   * setup: slides (0.405, 0.48, 0); mocap to grip + (-0.498, 0.005,
     -0.431+0.2); settle ``settle_steps`` control steps
 
-Options: ``solver_method`` ('psd', the default, or 'pallas': the PSD
-iteration as one fused kernel launch per substep; at ngrp=6, i.e. with the
-rolling rows that ``rolling='auto'`` emits on every GEECO scene, 'pallas'
-runs the 'psd' iteration, as in the JAX package), ``rolling`` ('auto',
-True or False; ``rolling=False`` with ``solver_method='pallas'`` is the
-configuration that runs the fused kernel).
+Options, as the JAX package's: ``solver_method`` (any of
+``physics.solver.METHODS``; 'pallas' runs the PSD iteration as one fused
+kernel launch per substep where the rows form 4 contact groups, i.e. with
+``rolling=False``), ``contact_select`` ('topk' or 'quota'),
+``contact_select_k`` (the top-K size; default 128 + 16 per free body past
+four), ``hysteresis`` (the selection's depth bonus for rows that carried
+force) and ``rolling`` ('auto', True or False).  The solver defaults are
+scene-conditional, as in the JAX package: ``psd_block`` with quota
+selection where a free body carries a mesh hull (ball-cup, bridge-pad,
+diamond-pad, nut-cone), else ``psd`` with the global top-K.
 ``start_sphere_r`` (0.03) is the radius of the ball the mocap start is
 drawn from by ``reset_random``.  ``renderer_kwargs`` passes ``shadows``,
 ``tex_grid``, ``coarse_k`` and ``mid_k`` to ``build_renderer``; the JAX
-renderer's other options are not ported (they raise).  ``device`` defaults
-to the card: without one, construction raises unless ``device='cpu'`` is
-passed.
+renderer's other options are not ported (they raise), nor are the TPU-only
+levers ``mass_inverse``, ``substep_unroll`` and ``solver_unroll`` (a value
+other than the default raises).  ``device`` defaults to the card: without
+one, construction raises unless ``device='cpu'`` is passed.
 
-``render_from_qpos`` re-renders state-only frames (the trainer's render_fn).
-
-Not ported yet: the texture override of ``render`` and
-``render_from_qpos``, the mesh-scene solver defaults (psd_block with quota
-contact selection), and the options ``contact_select_k``, ``hysteresis``,
-``contact_select``, ``mass_inverse`` and the TPU unroll levers.
+``render`` and ``render_from_qpos`` take ``textures``, which override the
+scene's textured surfaces for that render (the reference's background-video
+randomisation: ``background_textures`` puts a frame on the camera-facing
+wall).  ``render_from_qpos`` re-renders state-only frames (the trainer's
+render_fn).
 """
 
 from __future__ import annotations
@@ -176,8 +180,11 @@ class GeecoEnv:
   def __init__(self, shapes: str = 'pad2-cube2', frame_res=(256, 256),
                asset_root: str = ASSET_ROOT, n_substeps: int = 20,
                settle_steps: int = 10, solver_iterations: int = 60,
-               solver_method: Optional[str] = None,
-               collide_every: int = 1, rolling: str | bool = 'auto',
+               solver_method: Optional[str] = None, hysteresis: float = 0.0,
+               contact_select_k: Optional[int] = None,
+               collide_every: int = 1, substep_unroll: int = 1,
+               solver_unroll: int = 1, contact_select: Optional[str] = None,
+               mass_inverse: str = 'chol', rolling: str | bool = 'auto',
                start_sphere_r: float = 0.03,
                renderer_kwargs: Optional[dict] = None,
                device: str | torch.device | None = None):
@@ -187,8 +194,16 @@ class GeecoEnv:
       raise ValueError(f"rolling must be 'auto', True or False; "
                        f'got {rolling!r}')
     if solver_method is not None and solver_method not in METHODS:
-      raise NotImplementedError(f'solver_method {solver_method!r} is not '
-                                f'ported (ported: {", ".join(METHODS)})')
+      raise ValueError(f'unknown solver method {solver_method!r}')
+    # TPU-only levers (a While-loop workaround and XLA unroll counts)
+    levers = {'mass_inverse': (mass_inverse, 'chol'),
+              'substep_unroll': (substep_unroll, 1),
+              'solver_unroll': (solver_unroll, 1)}
+    for name, (value, default) in levers.items():
+      if value != default:
+        raise NotImplementedError(
+            f'{name}={value!r} is a TPU-only lever and is not ported '
+            f'(only {default!r})')
     unported = sorted(set(renderer_kwargs or {}) - set(RENDERER_OPTIONS))
     if unported:
       raise NotImplementedError(
@@ -201,20 +216,25 @@ class GeecoEnv:
     self.task = 'pushing' if shapes.startswith('push') else 'pickplace'
     xml = os.path.join(asset_root, 'envs', MODEL_XML[shapes])
     m, self.assets = mjcf.load_model(xml)
-    # the top-K active set must cover every penetrating row; clutter scenes
-    # add ~2 box manifolds of resting rows per extra free body
-    n_free = sum(1 for t in m.jnt_type if t == 0)  # FREE
-    contact_select_k = 128 + 16 * max(0, n_free - 4)
+    if contact_select_k is None:
+      # the top-K active set must cover every penetrating row; clutter
+      # scenes add ~2 box manifolds of resting rows per extra free body
+      n_free = sum(1 for t in m.jnt_type if t == 0)  # FREE
+      contact_select_k = 128 + 16 * max(0, n_free - 4)
+    # scene-conditional solver defaults: mesh objects resting on the table
+    # creep under the global top-K and one whole-system step size; a step
+    # size per island and a per-body quota selection hold them
     free_bodies = {m.jnt_bodyid[j] for j, t in enumerate(m.jnt_type)
                    if t == 0}
-    if any(h >= 0 and m.geom_bodyid[g] in free_bodies
-           for g, h in enumerate(m.geom_hullid)):
-      raise NotImplementedError(
-          f'{shapes}: mesh task objects need psd_block + quota selection, '
-          'not ported yet')
+    has_free_hulls = any(h >= 0 and m.geom_bodyid[g] in free_bodies
+                         for g, h in enumerate(m.geom_hullid))
+    if solver_method is None:
+      solver_method = 'psd_block' if has_free_hulls else 'psd'
+    if contact_select is None:
+      contact_select = 'quota' if has_free_hulls else 'topk'
     # static structure is compiled on the CPU, then moved to the device
     stepper = build_stepper(m, contact_select_k=contact_select_k,
-                            rolling=rolling)
+                            select_mode=contact_select, rolling=rolling)
     h, w = frame_res
     # kept for the dataset's meta: a state-only dataset is re-rendered at
     # train time with the renderer that collected it
@@ -224,7 +244,8 @@ class GeecoEnv:
     self.model = m.to(self.device)
     self.stepper: Stepper = stepper._replace(model=self.model)
     self.renderer: Renderer = dataclasses.replace(renderer, model=self.model)
-    self.solver_method = 'psd' if solver_method is None else solver_method
+    self.solver_method = solver_method
+    self.hysteresis = hysteresis
     self.collide_every = collide_every
     self.n_substeps = n_substeps
     self.start_sphere_r = start_sphere_r
@@ -285,7 +306,8 @@ class GeecoEnv:
   def _step_phys(self, phys: State) -> State:
     return self.stepper.step(phys, self.n_substeps, self.solver_iterations,
                              collide_every=self.collide_every,
-                             solver_method=self.solver_method)
+                             solver_method=self.solver_method,
+                             hysteresis=self.hysteresis)
 
   def _settle(self, phys: State) -> State:
     for _ in range(self.settle_steps):
@@ -458,6 +480,12 @@ class GeecoEnv:
   def kin(self, es: EnvState) -> Kin:
     return self.stepper.fk(es.phys)
 
+  def site_pos(self, kin: Kin, site_ids) -> torch.Tensor:
+    """World positions of the sites ``site_ids`` [B, n, 3]."""
+    ids = np.asarray(site_ids)
+    return kin.site_xpos[:, self.model.const(
+        f'env.sites{tuple(ids.ravel())}', ids)]
+
   def grip_pos(self, kin: Kin) -> torch.Tensor:
     return kin.site_xpos[:, self.grip_site]
 
@@ -517,6 +545,17 @@ class GeecoEnv:
         'desired_goal': es.goal_pos,
     }
 
+  def sample_goal(self, es: EnvState, goal: torch.Tensor) -> EnvState:
+    return es.replace(goal_pos=torch.as_tensor(goal, dtype=torch.float32,
+                                               device=self.device).expand(
+                                                   es.goal_pos.shape))
+
+  def reward(self, es: EnvState) -> torch.Tensor:
+    """Sparse reward [B] (gym FetchEnv compute_reward, threshold 0.05)."""
+    kin = self.kin(es)
+    d = gm.norm(self.task_object_pos(es, kin) - es.goal_pos)
+    return -(d > 0.05).float()
+
   # ------------------------------------------------------------- eval
 
   def eval_metrics(self, es: EnvState) -> Dict[str, torch.Tensor]:
@@ -537,10 +576,39 @@ class GeecoEnv:
 
   # ------------------------------------------------------------- render
 
-  def render(self, es: EnvState) -> Tuple[torch.Tensor, torch.Tensor]:
+  def background_slot(self) -> Optional[int]:
+    """Texture slot of the camera-facing wall (the reference randomises
+    'wall_04'), or None if the scene has no such textured wall."""
+    for slot, g in enumerate(np.asarray(self.renderer.scene.tex_slot_geom)):
+      if self.model.geom_name[int(g)] == 'wall_04':
+        return slot
+    return None
+
+  def background_textures(self, frame) -> Optional[torch.Tensor]:
+    """The whole texture-slot stack with the background wall replaced by
+    ``frame``: [R, R, 3] -> [S, R, R, 3], or one frame per env [B, R, R, 3]
+    -> [B, S, R, R, 3] (per-step video randomisation); None where the scene
+    has no background slot."""
+    slot = self.background_slot()
+    if slot is None:
+      return None
+    frame = torch.as_tensor(frame, dtype=torch.float32, device=self.device)
+    tex = self.renderer.const('tex_default')
+    if frame.dim() not in (3, 4) or frame.shape[-3:] != tex.shape[1:]:
+      raise ValueError(f'background textures must be a frame of '
+                       f'{tuple(tex.shape[1:])} texels (or one per env), '
+                       f'got {tuple(frame.shape)}')
+    tex = tex.expand(frame.shape[:-3] + tex.shape).clone()
+    tex[..., slot, :, :, :] = frame
+    return tex
+
+  def render(self, es: EnvState, textures=None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """RGB uint8 [B, H, W, 3] and depth f32 [B, H, W] from
-    external_camera_1, row 0 = top."""
-    return self.renderer.render(self.kin(es), es.rgba)
+    external_camera_1, row 0 = top.  ``textures`` ([S, R, R, 3], or one
+    stack per env [B, S, R, R, 3]) overrides the textured background
+    surfaces (table top, floor, walls) for this render."""
+    return self.renderer.render(self.kin(es), es.rgba, textures)
 
   def render_from_qpos(self, qpos: torch.Tensor, mocap_qpos: torch.Tensor,
                        rgba: torch.Tensor, textures=None
@@ -549,21 +617,20 @@ class GeecoEnv:
 
     qpos [n, nq], mocap_qpos [n, 7] (mocap position, then quaternion), rgba
     [n, ngeom, 4] -> (rgb uint8 [n, H, W, 3], depth f32 [n, H, W]), one
-    render of all n.  State-only datasets store the full qpos + mocap pose
-    per step and the episode's recolour table instead of frames; FK reads
-    nothing else, so training re-synthesizes the exact pixels on the device.
-    The other fields come from the settled initial state.
+    render of all n; ``textures`` as in ``render``.  State-only datasets
+    store the full qpos + mocap pose per step and the episode's recolour
+    table instead of frames; FK reads nothing else, so training
+    re-synthesizes the exact pixels on the device.  The other fields come
+    from the settled initial state.
     """
-    if textures is not None:
-      raise NotImplementedError('the texture override of render is not '
-                                'ported yet')
     n = qpos.shape[0]
     mocap = mocap_qpos.to(self.device, torch.float32)
     phys = self._phys_template(n).replace(
         qpos=qpos.to(self.device, torch.float32),
         mocap_pos=mocap[:, None, :3], mocap_quat=mocap[:, None, 3:])
     return self.renderer.render(self.stepper.fk(phys),
-                                rgba.to(self.device, torch.float32))
+                                rgba.to(self.device, torch.float32),
+                                textures)
 
 
 def make_env(shapes: str = 'pad2-cube2', **kwargs) -> GeecoEnv:

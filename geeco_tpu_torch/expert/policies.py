@@ -228,19 +228,17 @@ def rollout(env: GeecoEnv, es: EnvState, expert_step: Callable,
   action stays the expert's clean one.  When given, its time axis sets the
   episode length, as in the JAX package.
 
-  ``step_textures`` (per-step background textures) raise
-  ``NotImplementedError``: the texture override of ``render`` is not
-  ported.
+  ``step_textures`` ([length, R, R, 3], or [length, B, R, R, 3] per env):
+  the background texel frame of each step, handed to ``record_fn`` as
+  ``textures`` (background-video randomisation of the recorded frames).
   """
-  if step_textures is not None:
-    raise NotImplementedError('step_textures: the texture override of '
-                              'render is not ported')
   n = length if action_noise is None else action_noise.shape[1]
   xs = init_expert_state(es.phys.qpos.shape[0], es.phys.qpos.device)
   recs = []
   for t in range(n):
     action, xs = expert_step(es, xs)
-    recs.append(record_fn(env, es, action, xs, textures=None)
+    tex = None if step_textures is None else step_textures[t]
+    recs.append(record_fn(env, es, action, xs, textures=tex)
                 if record_fn is not None else action)
     exec_action = action if action_noise is None else \
         action + action_noise[:, t].to(action)

@@ -10,8 +10,9 @@ The policy state mirrors the predictor (src/models/e2evmc/predictor.py:
 127-200): a window_size frame buffer padded with the first frame, the LSTM
 carry persisted across steps, argmax -> {-1, 0, 1} gripper command.
 
-Not ported yet: the per-step background textures (``step_textures``) and
-sharding the env batch over devices (``mesh``); both raise.
+``step_textures`` put a background frame a step on the camera-facing
+wall.  Not ported yet: sharding the env batch over devices (``mesh``)
+raises.
 """
 
 from __future__ import annotations
@@ -91,11 +92,11 @@ def make_closed_loop(env: Optional[GeecoEnv], config: E2EVMCConfig,
 
   def step_fn(model: E2EVMC, es: EnvState, ps: PolicyState,
               tgt_frame: torch.Tensor, textures=None):
-    """One closed-loop control step of the B envs."""
-    if textures is not None:
-      raise NotImplementedError('per-step background textures are not '
-                                'ported yet')
-    rgb, depth = env.render(es)
+    """One closed-loop control step of the B envs; ``textures``: this
+    step's background texel frame ([R, R, 3] or one per env) or None."""
+    tex = env.background_textures(textures) if textures is not None \
+        else None
+    rgb, depth = env.render(es, textures=tex)
     obs = rgb.float() / 255.0
     if config.img_channels == 4:
       obs = torch.cat([obs, depth[..., None]], -1)
@@ -152,13 +153,11 @@ def evaluate_batched(env: GeecoEnv, config: E2EVMCConfig, model: E2EVMC,
   closed-loop rollout of ``n_steps`` control steps; returns the per-env
   metrics [B] each.
 
-  collect_frames=V > 0 additionally copies the first V envs' frames to the
-  host every step and returns (metrics, frames [n_steps, V, H, W, 3]
-  uint8), for eval videos.
+  ``step_textures`` ([n_steps, R, R, 3] or None): the background frame
+  of each step.  collect_frames=V > 0 additionally copies the first V
+  envs' frames to the host every step and returns (metrics, frames
+  [n_steps, V, H, W, 3] uint8), for eval videos.
   """
-  if step_textures is not None:
-    raise NotImplementedError('per-step background textures are not '
-                              'ported yet')
   if mesh is not None:
     raise NotImplementedError('sharding the env batch over devices is not '
                               'ported yet')
@@ -184,8 +183,9 @@ def evaluate_batched(env: GeecoEnv, config: E2EVMCConfig, model: E2EVMC,
       'last_grasp': z,
   }
   frames = [] if collect_frames > 0 else None
-  for _ in range(n_steps):
-    es, ps, m, rgb = step_fn(model, es, ps, tgt_frames)
+  for t in range(n_steps):
+    tex = step_textures[t] if step_textures is not None else None
+    es, ps, m, rgb = step_fn(model, es, ps, tgt_frames, tex)
     if frames is not None:
       frames.append(rgb[:collect_frames].cpu().numpy())
     agg['obj_vicinity'] = torch.maximum(agg['obj_vicinity'],

@@ -1,10 +1,10 @@
-"""Constraint assembly + projected steepest-descent (PSD) contact solver.
+"""Constraint assembly + projected-gradient contact solver.
 
-Counterpart of ``geeco_tpu/physics/solver.py``, methods ``'psd'`` and
-``'pallas'``, with a leading env axis B on every dynamic tensor.  MuJoCo-style soft
-constraints (solref/solimp impedance, reference accelerations,
-R-regularisation) are solved in the dual (force) space with a diagonally
-preconditioned projected gradient; friction cones are elliptic.
+Counterpart of ``geeco_tpu/physics/solver.py``, with a leading env axis B
+on every dynamic tensor.  MuJoCo-style soft constraints (solref/solimp
+impedance, reference accelerations, R-regularisation) are solved in the
+dual (force) space with a diagonally preconditioned projected iteration;
+friction cones are elliptic.
 
 Row layout (static per model):
   [ncon * ngrp]  contact rows: (normal, tangent1, tangent2, torsional
@@ -13,29 +13,34 @@ Row layout (static per model):
   [neq * 6]      weld rows (3 translation + 3 rotation)
 
 ``constraint_static`` is host-side numpy, carried across, with the JAX
-package's ``rolling`` option.  ``solve(method='pallas')`` runs the PSD
-iteration as one fused kernel per substep (``solver_pallas.psd_solve``)
-when the rows form 4 contact groups (ngrp=4, no rolling rows), and the
-plain ``'psd'`` iteration otherwise, as the JAX package does.  The other
-methods of the JAX package (cg, bb, apgd, psd_block, bb_block) and quota
-selection are not ported yet.
+package's ``rolling`` and ``select_mode`` options: ``'topk'`` solves the K
+deepest contacts, ``'quota'`` the deepest few of each free body's rows
+(``_quota_groups``).  ``solve`` takes every method of the JAX package
+(``METHODS``): the iterations ``psd``, ``cg``, ``bb`` and ``apgd``, the
+per-island block variants ``psd_block`` and ``bb_block`` (quota selection
+only: their row blocks are the quota groups, ``block_ids``), and
+``'pallas'``, which runs the PSD iteration as one fused kernel per substep
+(``solver_pallas.psd_solve``) when the rows form 4 contact groups (ngrp=4,
+no rolling rows), and the plain ``'psd'`` iteration otherwise, as the JAX
+package does.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core import math as gm
-from ..core.model import Model, State, make_state
+from ..core.model import FREE, MESH, Model, State, make_state
 from . import collision as C
 from . import dynamics as D
 from . import kinematics as K
 from . import solver_pallas as SP
 
-METHODS = ('psd', 'pallas')
+METHODS = ('psd', 'cg', 'bb', 'apgd', 'psd_block', 'bb_block', 'pallas')
+BLOCK_METHODS = ('psd_block', 'bb_block')
 
 
 class ConstraintStatic(NamedTuple):
@@ -58,6 +63,11 @@ class ConstraintStatic(NamedTuple):
   invweight: np.ndarray     # [ne] reference-pose inverse weight per row
   ncon_sel: int             # active-set size (top-K contacts solved)
   ngrp: int                 # contact row groups: 4, or 6 with rolling rows
+  # quota selection: (candidate-index array, k) per group, or None for the
+  # global top-K.  The groups partition the candidate rows by the free body
+  # they constrain (robot/static rows in a group of their own), so depth
+  # ranks on robot rows cannot change which rows a resting body keeps.
+  quota_sel: Optional[Tuple[Tuple[np.ndarray, int], ...]] = None
 
 
 def _reference_pose_jacobians(model: Model, anc_mask: np.ndarray):
@@ -88,15 +98,69 @@ def _dof_invweights(model: Model, anc_mask: np.ndarray) -> np.ndarray:
   return np.diag(Minv).astype(np.float32)
 
 
+def _quota_groups(model: Model, b1: np.ndarray, b2: np.ndarray,
+                  quota_obj: int, quota_mesh: int, quota_robot: int
+                  ) -> Tuple[Tuple[np.ndarray, int], ...]:
+  """Partition the candidate contact rows into per-free-body quota groups.
+
+  Row -> group: the free body it constrains (rows between two free bodies
+  go to the lower body id); rows touching no free body (robot, table,
+  walls) form the 'robot' group, last.  Bodies with mesh-hull geoms get
+  the larger ``quota_mesh`` budget (hull face manifolds give more
+  simultaneous rows than a box's).
+  """
+  free = {int(model.jnt_bodyid[j]) for j in range(model.njnt)
+          if model.jnt_type[j] == FREE}
+  g_body = np.asarray(model.geom_bodyid)
+  g_type = np.asarray(model.geom_type)
+  has_mesh = {b: bool(np.any((g_body == b) & (g_type == MESH)))
+              for b in free}
+  groups: dict = {b: [] for b in sorted(free)}
+  groups['robot'] = []
+  for i in range(len(b1)):
+    f1 = int(b1[i]) in free
+    f2 = int(b2[i]) in free
+    if f1 and f2:
+      groups[min(int(b1[i]), int(b2[i]))].append(i)
+    elif f1:
+      groups[int(b1[i])].append(i)
+    elif f2:
+      groups[int(b2[i])].append(i)
+    else:
+      groups['robot'].append(i)
+  out = []
+  for key, rows in groups.items():
+    if not rows:
+      continue
+    if key == 'robot':
+      k = min(len(rows), quota_robot)
+    else:
+      k = min(len(rows), quota_mesh if has_mesh[key] else quota_obj)
+    out.append((np.asarray(rows, np.int32), k))
+  return tuple(out)
+
+
 def constraint_static(model: Model, anc_mask: np.ndarray,
                       select_k: int = 128,
-                      rolling: str | bool = 'auto') -> ConstraintStatic:
+                      rolling: str | bool = 'auto',
+                      select_mode: str = 'topk',
+                      quota_obj: int = 24, quota_mesh: int = 48,
+                      quota_robot: int = 32) -> ConstraintStatic:
   """The static row layout.  ``rolling``: True forces the two rolling
   groups (ngrp=6), False leaves them out (ngrp=4), 'auto' emits them only
   where a condim-6 pair has a rolling coefficient above 1e-3 (MuJoCo's
-  default is 1e-4)."""
+  default is 1e-4).  ``select_mode``: 'topk' (the ``select_k`` deepest
+  contacts) or 'quota' (the deepest of each quota group; K is then the sum
+  of the quotas)."""
   b1, b2, fric, solref, solimp, condim = C.contact_params(model)
   ncon = len(b1)
+  quota_sel = None
+  if select_mode == 'quota' and ncon:
+    quota_sel = _quota_groups(model, b1, b2, quota_obj, quota_mesh,
+                              quota_robot)
+    select_k = sum(k for _, k in quota_sel)
+  elif select_mode not in ('topk', 'quota'):
+    raise ValueError(f'unknown select_mode {select_mode!r}')
   ncon_sel = min(ncon, select_k) if select_k else ncon
   if rolling == 'auto':
     rolling = bool(ncon) and bool(
@@ -147,6 +211,7 @@ def constraint_static(model: Model, anc_mask: np.ndarray,
       invweight=invweight,
       ncon_sel=ncon_sel,
       ngrp=ngrp,
+      quota_sel=quota_sel,
   )
 
 
@@ -203,7 +268,14 @@ def _select_contacts(score: torch.Tensor, k: int) -> torch.Tensor:
 
 def make_constraints(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
                      contacts: C.Contacts, state: State,
-                     anc_mask: np.ndarray) -> Constraints:
+                     anc_mask: np.ndarray,
+                     hysteresis: float = 0.0) -> Constraints:
+  """The selected contact rows, the limit rows and the weld rows.
+
+  ``hysteresis`` > 0 gives contacts that carried normal force in the last
+  substep (``state.efc_force``) that much depth bonus in the selection, so
+  the active set's composition is sticky.
+  """
   info = smooth.info
   nv = model.nv
   B = state.qpos.shape[0]
@@ -223,7 +295,20 @@ def make_constraints(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
   # ---------------- contacts (top-K active selection) ----------------
   if cs.ncon:
     Kc = cs.ncon_sel
-    sel_idx = _select_contacts(contacts.dist, Kc)              # [B, K]
+    score = contacts.dist
+    if hysteresis > 0.0 and state.efc_force is not None:
+      warm_n = state.efc_force[:, :cs.ncon].detach()       # normal rows
+      score = score - hysteresis * (warm_n > 0.0).to(score.dtype)
+    if cs.quota_sel is not None:
+      # top-k within each static group: one body's rows cannot evict
+      # another's
+      parts = []
+      for gi, (idx, k) in enumerate(cs.quota_sel):
+        idx_t = model.const(f'cs.quota{gi}', idx)
+        parts.append(idx_t[_select_contacts(score[:, idx_t], k)])
+      sel_idx = torch.cat(parts, 1)                            # [B, K]
+    else:
+      sel_idx = _select_contacts(score, Kc)                    # [B, K]
 
     def gather(x):                       # [B, ncon, ...] at sel_idx
       idx = sel_idx.reshape(sel_idx.shape + (1,) * (x.ndim - 2))
@@ -397,25 +482,147 @@ def scatter_forces(cs: ConstraintStatic, con: Constraints,
   return torch.cat([full2.reshape(B, -1), f_sel[:, cs.ngrp * Kc:]], 1)
 
 
+def block_ids(cs: ConstraintStatic) -> Optional[np.ndarray]:
+  """Static row -> island-block id over the selected inequality rows.
+
+  One block per quota group (each free body's rows, then the robot/static
+  rows, see ``_quota_groups``) and one more for the joint-limit rows.  Only
+  quota selection has them: slot j of ``sel_idx`` then belongs to quota
+  group q(j) in every env.  Layout as ``_row_order``: ngrp x K contact
+  rows, then 2 x nlim limit rows.
+  """
+  if cs.quota_sel is None:
+    return None
+  slot_block = np.concatenate(
+      [np.full(k, gi, np.int32) for gi, (_, k) in enumerate(cs.quota_sel)]
+  ) if cs.quota_sel else np.zeros(0, np.int32)
+  nb = len(cs.quota_sel)
+  return np.concatenate(
+      [np.tile(slot_block, cs.ngrp), np.full(2 * cs.nlim, nb, np.int32)])
+
+
+def _dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+  return (x * y).sum(-1, keepdim=True)
+
+
+def _step(num: torch.Tensor, den: torch.Tensor, floor: float = 1e-12,
+          other=0.0) -> torch.Tensor:
+  """num / den where den > floor, else ``other``."""
+  return torch.where(den > floor, num / torch.clamp(den, min=floor), other)
+
+
 def _iterate(Aop, project, f0: torch.Tensor, b: torch.Tensor,
-             precond: torch.Tensor, iterations: int) -> torch.Tensor:
+             precond: torch.Tensor, iterations: int, method: str = 'psd',
+             bid: Optional[torch.Tensor] = None) -> torch.Tensor:
   """Projected iteration on min 1/2 fᵀAf + bᵀf s.t. cone, for B envs.
 
-  The JAX package's method='psd': preconditioned steepest descent with
-  the exact quadratic step — two operator applications per iteration,
-  monotone.  A Python loop where the JAX package scans.
+  A Python loop where the JAX package scans.  Methods:
+    psd   preconditioned steepest descent with the exact quadratic step:
+          two operator applications an iteration, monotone.
+    cg    preconditioned conjugate gradient (Fletcher-Reeves) with
+          projection, falling back to the gradient step on non-positive
+          curvature (three operator applications: the fallback's is always
+          computed, as in the JAX package).
+    bb    projected Barzilai-Borwein: the step from the previous (s, y)
+          pair, one operator application an iteration.
+    apgd  Nesterov-accelerated projected gradient with adaptive restart.
+  Block variants (``bid`` [nI] int64, the row -> block map of
+  ``block_ids``): a step size per island of rows, so a rank change on one
+  island's rows does not move another island's forces.
+    psd_block  per-block exact steps composed into one direction, then a
+               global exact line search along it (three applications).
+    bb_block   per-block Barzilai-Borwein steps (one application).
+  The per-block sums are a one-hot product over the static ``bid`` (the
+  JAX package's ``segment_sum``): no atomics, so the result does not
+  depend on the order rows finish in.
   """
-  f = f0
-  zero = torch.zeros((), dtype=f0.dtype, device=f0.device)
-  for _ in range(iterations):
-    g = Aop(f) + b
-    d = precond * g
-    Ad = Aop(d)
-    denom = (d * Ad).sum(-1, keepdim=True)
-    alpha = torch.where(denom > 1e-12, (g * d).sum(-1, keepdim=True) /
-                        torch.clamp(denom, min=1e-12), zero)
-    f = project(f - alpha * d)
-  return f
+  if method in BLOCK_METHODS:
+    if bid is None:
+      raise ValueError(f"{method!r} requires quota contact selection "
+                       "(constraint_static(select_mode='quota'))")
+    onehot = (bid[:, None] == torch.arange(int(bid.max()) + 1,
+                                           device=bid.device)).to(f0.dtype)
+
+    def seg(x):                                    # [B, nI] -> [B, nblocks]
+      return (x[..., None] * onehot).sum(-2)
+
+  if method == 'psd_block':
+    f = f0
+    for _ in range(iterations):
+      g = Aop(f) + b
+      d = precond * g
+      Ad = Aop(d)
+      alpha_b = _step(seg(g * d), seg(d * Ad))
+      dp = alpha_b[:, bid] * d
+      Adp = Aop(dp)    # A (D d) != D (A d): the composite needs its own Aop
+      f = project(f - _step(_dot(g, dp), _dot(dp, Adp)) * dp)
+    return f
+
+  if method in ('bb', 'bb_block'):
+    # one exact preconditioned-gradient step seeds the (s, y) history
+    g0 = Aop(f0) + b
+    d0 = precond * g0
+    alpha0 = _step(_dot(g0, d0), _dot(d0, Aop(d0)))
+    f, f_prev, g_prev = project(f0 - alpha0 * d0), f0, g0
+    alpha_prev = torch.clamp(alpha0, min=1e-8)
+    if method == 'bb_block':
+      alpha_prev = alpha_prev.expand(-1, onehot.shape[1])
+    for _ in range(iterations):
+      g = Aop(f) + b                      # the ONLY operator application
+      s = f - f_prev
+      y = g - g_prev
+      if method == 'bb':
+        # s^T P^-1 s / s^T y (BB1 in the P metric); an unusable curvature
+        # pair reuses the previous step size
+        alpha = _step(_dot(s, s / precond), _dot(s, y), 1e-14, alpha_prev)
+        step = alpha
+      else:
+        alpha = _step(seg(s * s / precond), seg(s * y), 1e-14, alpha_prev)
+        step = alpha[:, bid]
+      f, f_prev, g_prev, alpha_prev = project(f - step * precond * g), f, \
+          g, alpha
+    return f
+
+  if method == 'psd':
+    f = f0
+    for _ in range(iterations):
+      g = Aop(f) + b
+      d = precond * g
+      f = project(f - _step(_dot(g, d), _dot(d, Aop(d))) * d)
+    return f
+
+  if method == 'cg':
+    f, d_prev = f0, torch.zeros_like(f0)
+    gz_prev = f0.new_zeros((f0.shape[0], 1))
+    for _ in range(iterations):
+      g = Aop(f) + b
+      z = precond * g
+      gz = _dot(g, z)
+      d = z + _step(gz, gz_prev) * d_prev
+      Ad = Aop(d)
+      curved = _dot(d, Ad) > 1e-12
+      # non-positive curvature along d: the plain gradient step
+      d = torch.where(curved, d, z)
+      dAd = torch.where(curved, _dot(d, Ad), _dot(z, Aop(z)))
+      f, d_prev, gz_prev = project(f - _step(_dot(g, d), dAd) * d), d, gz
+    return f
+
+  if method == 'apgd':
+    # a psd step taken at the extrapolated point y; the momentum restarts
+    # whenever g . (f_new - f) > 0
+    f, y, t = f0, f0, f0.new_ones((f0.shape[0], 1))
+    for _ in range(iterations):
+      g = Aop(y) + b
+      d = precond * g
+      f_new = project(y - _step(_dot(g, d), _dot(d, Aop(d))) * d)
+      restart = _dot(g, f_new - f) > 0.0
+      t_new = torch.where(restart, 1.0,
+                          0.5 * (1.0 + torch.sqrt(1.0 + 4 * t * t)))
+      beta = torch.where(restart, 0.0, (t - 1.0) / t_new)
+      f, y, t = f_new, f_new + beta * (f_new - f), t_new
+    return f
+
+  raise ValueError(f'unknown solver method {method!r}')
 
 
 def solve(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
@@ -427,20 +634,29 @@ def solve(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
   dual conditioning; they are solved exactly by Schur complement (they need
   no cone projection) and only the inequality rows are iterated.
 
-  ``method='psd'`` iterates in PyTorch, one small kernel per operation.
-  ``method='pallas'`` runs the whole iteration as one fused kernel launch
-  (``solver_pallas.psd_solve``: the CUDA kernel on the card, its plain twin
-  on the CPU), with the TPU kernel's operator form; it needs ngrp=4, and at
-  ngrp=6 (rolling rows) it runs the ``'psd'`` iteration, as in the JAX
-  package.  Returns (f_full [B, ne], qacc [B, nv]).
+  Every method but ``'pallas'`` iterates in PyTorch, one small kernel per
+  operation (``_iterate``).  ``method='pallas'`` runs the whole iteration
+  as one fused kernel launch (``solver_pallas.psd_solve``: the CUDA kernel
+  on the card, its plain twin on the CPU), with the TPU kernel's operator
+  form; it needs ngrp=4, and at ngrp=6 (rolling rows) it runs the
+  ``'psd'`` iteration, as in the JAX package.  The block methods need quota
+  selection.  Returns (f_full [B, ne], qacc [B, nv]).
   """
   if method not in METHODS:
-    raise NotImplementedError(f'solver method {method!r} is not ported '
-                              f'(ported: {", ".join(METHODS)})')
+    raise ValueError(f'unknown solver method {method!r}')
   fused = method == 'pallas' and cs.ngrp == 4
   B, ne_sel = con.J.shape[0], con.J.shape[1]
   if ne_sel == 0:
     return smooth.qacc_smooth.new_zeros((B, cs.ne)), smooth.qacc_smooth
+  bid = None
+  if method in BLOCK_METHODS:
+    bid_np = block_ids(cs)
+    if bid_np is None:
+      raise ValueError(f"{method!r} requires quota contact selection "
+                       "(constraint_static(select_mode='quota'))")
+    quotas = tuple(k for _, k in cs.quota_sel)
+    bid = model.const(f'cs.block_ids.{cs.ngrp}.{cs.nlim}.{quotas}', bid_np)
+  it_method = 'psd' if method == 'pallas' else method
 
   JT = con.J.transpose(1, 2)                                   # [B, nv, ne]
   X = torch.cholesky_solve(JT, smooth.chol)                    # M⁻¹ Jᵀ
@@ -521,7 +737,8 @@ def solve(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
       fI = fused_solve(J_I, X_I, A_IE, A_EE_inv, R_I, b_red, precond,
                        f0[:, :nI])
     else:
-      fI = _iterate(A_red, project, f0[:, :nI], b_red, precond, iterations)
+      fI = _iterate(A_red, project, f0[:, :nI], b_red, precond, iterations,
+                    it_method, bid)
     fE = -mv(A_EE_inv, b_E + mv(A_IE.transpose(1, 2), fI))
     f = torch.cat([fI, fE], 1)
   else:
@@ -534,7 +751,8 @@ def solve(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
       f = fused_solve(con.J, X, X.new_zeros((B, ne_sel, 0)),
                       X.new_zeros((B, 0, 0)), R, b, precond, f0)
     else:
-      f = _iterate(A_full, project, f0, b, precond, iterations)
+      f = _iterate(A_full, project, f0, b, precond, iterations, it_method,
+                   bid)
 
   qacc = smooth.qacc_smooth + mv(X, f)
   return scatter_forces(cs, con, f), qacc

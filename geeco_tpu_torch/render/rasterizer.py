@@ -65,10 +65,18 @@ class Renderer:
   def replace(self, **changes) -> 'Renderer':
     return dataclasses.replace(self, **changes)
 
-  def render(self, kin: Kin, geom_rgba: torch.Tensor | None = None
+  def render(self, kin: Kin, geom_rgba: torch.Tensor | None = None,
+             textures: torch.Tensor | None = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Render B envs: (rgb uint8 [B, H, W, 3], depth f32 [B, H, W])."""
-    return _render(self, kin, geom_rgba)
+    """Render B envs: (rgb uint8 [B, H, W, 3], depth f32 [B, H, W]).
+
+    ``textures`` (f32 in [0, 1], [S, R, R, 3] for every env or
+    [B, S, R, R, 3] per env) overrides the static texel colours of the
+    scene's textured surfaces (``RenderScene.tri_texslot``): the
+    reference's TextureModder background randomisation.  The texels only
+    colour the triangles, so the raster kernel is the same.
+    """
+    return _render(self, kin, geom_rgba, textures)
 
   def const(self, name: str) -> torch.Tensor:
     """A RenderScene array as a (cached) tensor on the model's device."""
@@ -145,7 +153,7 @@ def _vertex_world(r: Renderer, kin: Kin) -> torch.Tensor:
 
 
 def _project_and_shade(r: Renderer, kin: Kin, rgba: torch.Tensor,
-                       cam=None, world=None) -> TriPlanes:
+                       cam=None, world=None, textures=None) -> TriPlanes:
   model, scene = r.model, r.scene
   H, W = r.height, r.width
   cam_pos, Rc = _camera(r, kin) if cam is None else cam
@@ -199,11 +207,21 @@ def _project_and_shade(r: Renderer, kin: Kin, rgba: torch.Tensor,
   shade = torch.clamp(0.45 + 0.6 * diff, 0.0, 1.1)
   base = rgba[:, tg, :3]                                # [B, T, 3]
   if scene.tex_default.shape[0]:
-    # textured triangles read their texel from the slot's [R, R] grid
+    # textured triangles read their texel from the slot's [R, R] grid;
+    # ``textures`` overrides the static texels for this render
     R2 = scene.tex_res * scene.tex_res
-    flat = r.const('tex_default').reshape(-1, 3)
     slot = r.const('tri_texslot')
-    trgb = flat[torch.clamp(slot, min=0) * R2 + r.const('tri_texel')]
+    idx = torch.clamp(slot, min=0) * R2 + r.const('tri_texel')
+    if textures is None:
+      trgb = r.const('tex_default').reshape(-1, 3)[idx]       # [T, 3]
+    else:
+      tex = torch.as_tensor(textures, dtype=torch.float32,
+                            device=base.device)
+      want = tuple(scene.tex_default.shape)
+      if tuple(tex.shape[-4:]) != want or tex.dim() not in (4, 5):
+        raise ValueError(f'textures must be {want} or [B, *{want}], got '
+                         f'{tuple(tex.shape)}')
+      trgb = tex.reshape(tex.shape[:-4] + (-1, 3))[..., idx, :]
     base = torch.where((slot >= 0)[:, None], trgb, base)
   c = torch.clamp(base * shade[..., None] * 255.0, 0.0, 255.0)
   colp = (torch.floor(c[..., 0]) * 65536.0 + torch.floor(c[..., 1]) * 256.0 +
@@ -482,7 +500,8 @@ def _compose_midmajor(buf: torch.Tensor, ty: int, tx: int, TS: int,
 # ---------------------------------------------------------------------------
 
 
-def _render(r: Renderer, kin: Kin, geom_rgba: torch.Tensor | None):
+def _render(r: Renderer, kin: Kin, geom_rgba: torch.Tensor | None,
+            textures: torch.Tensor | None = None):
   H, W, TS = r.height, r.width, r.tile
   ty, tx = H // TS, W // TS
   B = kin.xpos.shape[0]
@@ -491,7 +510,8 @@ def _render(r: Renderer, kin: Kin, geom_rgba: torch.Tensor | None):
       else geom_rgba
   cam = _camera(r, kin)
   world = _vertex_world(r, kin)
-  tp = _project_and_shade(r, kin, rgba, cam=cam, world=world)
+  tp = _project_and_shade(r, kin, rgba, cam=cam, world=world,
+                          textures=textures)
 
   planes = _bin_hierarchical(r, tp)                     # [B, n_tiles, K2]
   coeffs = _coeff_planes(planes, TS, _MID)              # [B, n_tiles, 13, K2]

@@ -14,8 +14,8 @@ ARGPARSER = sim.make_argparser(
     '(GEECO, PyTorch).', wrk_dir='../logs/gym_pickplace',
     shapes='pad2-cube2',
     shapes_help='pad1-cube1 | pad2-cube1 | pad1-cube2 | pad2-cube2 | '
-                'pad2-cube2-clutter4 | pad2-cube2-clutter12 (the port has '
-                'no mesh scenes yet: ROADMAP Queue 1 item 10)')
+                'pad2-cube2-clutter4 | pad2-cube2-clutter12 | ball-cup | '
+                'bridge-pad | diamond-pad | nut-cone')
 
 
 def parse(argv=None):

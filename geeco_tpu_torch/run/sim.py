@@ -13,8 +13,11 @@ episodes are written out per env by a pool of writer threads.  Random draws
 come from a CPU ``torch.Generator`` seeded with --seed, so one seed gives
 the same resets on every device (not the JAX package's numbers).
 
-Not ported, and raising with their ROADMAP Queue 1 item: --background_video
-and --rendering_mode viewer (item 17), --num_devices > 1 (item 18).
+--background_video (a GIF or a directory of frames; other formats need
+OpenCV) puts one frame a step on the camera-facing wall of collected and
+evaluated episodes; --rendering_mode viewer draws the frames into the
+terminal (render/viewer.py).  Not ported, and raising with its ROADMAP
+Queue 1 item: --num_devices > 1 (item 18).
 """
 
 from __future__ import annotations
@@ -74,7 +77,8 @@ def make_argparser(description: str, wrk_dir: str, shapes: str,
   ap.add_argument('--dataset_dir', type=str, default='')
   ap.add_argument('--tfrecord_list', type=str, default='')
   ap.add_argument('--background_video', type=str, default='',
-                  help='not ported (ROADMAP Queue 1 item 17): raises')
+                  help='GIF, directory of frames or video (OpenCV) cycled '
+                       'onto the camera-facing wall, one frame a step')
   ap.add_argument('--carry_mode', type=str, default='auto',
                   choices=['auto', 'window', 'persistent'],
                   help='LSTM carry at serving: auto derives it from the '
@@ -89,8 +93,7 @@ def make_argparser(description: str, wrk_dir: str, shapes: str,
                        'texture tessellation (flat colors), -1 = renderer '
                        'default')
   ap.add_argument('--rendering_mode', type=str, default='tfrecord',
-                  help='video | tfrecord | none (viewer is not ported: '
-                       'ROADMAP Queue 1 item 17)')
+                  help='video | tfrecord | viewer | none')
   ap.add_argument('--frame_res', type=int, nargs=2, default=[256, 256])
   ap.add_argument('--observation_format', type=str, default='rgb')
   ap.add_argument('--num_devices', type=int, default=1,
@@ -136,13 +139,6 @@ def parse(parser: argparse.ArgumentParser, argv=None) -> argparse.Namespace:
 
 
 def _check_ported(args):
-  if getattr(args, 'background_video', ''):
-    raise NotImplementedError('--background_video: the texture override '
-                              'of render is not ported (ROADMAP Queue 1 '
-                              'item 17)')
-  if args.rendering_mode == 'viewer':
-    raise NotImplementedError('--rendering_mode viewer is not ported '
-                              '(ROADMAP Queue 1 item 17)')
   if getattr(args, 'num_devices', 1) > 1:
     raise NotImplementedError('--num_devices > 1: sharding the env batch '
                               'is not ported (ROADMAP Queue 1 item 18)')
@@ -163,6 +159,28 @@ def build_env(args) -> GeecoEnv:
   return GeecoEnv(shapes=args.shapes, frame_res=tuple(args.frame_res),
                   start_sphere_r=getattr(args, 'start_sphere', 0.03),
                   renderer_kwargs=rk, device=getattr(args, 'device', None))
+
+
+def _background_cycler(args, env: GeecoEnv):
+  """--background_video's frame cycler (the reference's VideoCycler +
+  TextureModder on wall_04), or None."""
+  if not getattr(args, 'background_video', ''):
+    return None
+  from ..data.videos import VideoCycler
+  cycler = VideoCycler(args.background_video)
+  if env.background_slot() is None:
+    print('WARNING: scene has no textured wall_04; '
+          '--background_video ignored')
+    return None
+  return cycler
+
+
+def _step_textures(cycler, env: GeecoEnv, n_steps: int):
+  """[n_steps, R, R, 3] background texels on the env's device, or None."""
+  if cycler is None:
+    return None
+  return torch.as_tensor(cycler.texel_steps(
+      n_steps, env.renderer.scene.tex_res), device=env.device)
 
 
 def _episode_context(env: GeecoEnv, task_goal: int, task_object: int
@@ -228,7 +246,14 @@ def run_collect(args):
     print(f'WARNING: --dataset_formats states records no frames; '
           f'rendering_mode={args.rendering_mode} output will not be '
           f'produced')
-  with_frames = not state_only and args.rendering_mode == 'tfrecord'
+  if state_only and getattr(args, 'background_video', ''):
+    raise SystemExit('--background_video is incompatible with '
+                     '--dataset_formats states: per-step background '
+                     'texels are not recorded, so re-rendered training '
+                     'frames could not reproduce them')
+  # viewer mode needs frames too (live playback of the recorded episode)
+  with_frames = (not state_only
+                 and args.rendering_mode in ('tfrecord', 'viewer'))
   fast = fmt in ('npz', 'states')
   record_fn = make_record_fn(env, with_frames=with_frames,
                              with_depth=not fast, with_state=state_only)
@@ -251,6 +276,11 @@ def run_collect(args):
   P = max(0, getattr(args, 'perturb_prefix', 0))
   video = VideoRecorder('collect', wrk_dir) \
       if args.rendering_mode == 'video' else None
+  viewer = None
+  if args.rendering_mode == 'viewer':
+    from ..render.viewer import TerminalViewer
+    viewer = TerminalViewer()
+  cycler = _background_cycler(args, env)
   gen = torch.Generator().manual_seed(args.seed)
   n_specs = 0 if specs is None else int(specs.mocap_qpos.shape[0])
   successes: List[float] = []
@@ -272,7 +302,9 @@ def run_collect(args):
       noise = sigma * torch.randn((B, episode_steps, 3), generator=gen)
       noise = torch.cat([noise, torch.zeros(B, episode_steps, 1)], -1)
     es_f, recs = rollout(env, es, expert, length=episode_steps,
-                         record_fn=record_fn, action_noise=noise)
+                         record_fn=record_fn, action_noise=noise,
+                         step_textures=_step_textures(cycler, env,
+                                                      episode_steps))
     return dict(chunk=chunk, n=n, es=es, recs=recs,
                 metrics=env.eval_metrics(es_f))
 
@@ -324,6 +356,9 @@ def run_collect(args):
         for frame in rec_k['rgb']:
           video.feed(frame)
         video.flush()
+      if viewer is not None and k == 0 and 'rgb' in rec_k:
+        for t, frame in enumerate(rec_k['rgb']):
+          viewer.feed(frame, hud=f'episode {episode_id} t={t}')
       success = float(metrics['task_success'][k])
       successes.append(success)
       print(f'episode {episode_id}: task_success={success:.0f} '
@@ -339,6 +374,8 @@ def run_collect(args):
       fu.result()
   if video is not None:
     video.finalize()
+  if viewer is not None:
+    viewer.close()
   if successes:
     print(f'>>> expert success rate: {np.mean(successes) * 100:.2f}% '
           f'({len(successes)} episodes)')
@@ -535,6 +572,7 @@ def run_controller_batched(args):
   env.setup()
   gen = torch.Generator().manual_seed(args.seed)
   episode_steps = _episode_steps(args, EPISODE_STEPS_CONTROL)
+  cycler = _background_cycler(args, env)
   rows = []
   # --rendering_mode video: per-episode eval videos for the first chunk's
   # first envs, with real paths in the eval CSV (reference protocol:
@@ -543,6 +581,7 @@ def run_controller_batched(args):
   for chunk in range(0, n_eps, B):
     n = min(B, n_eps - chunk)
     V = min(n_video, n) if chunk == 0 else 0
+    step_textures = _step_textures(cycler, env, episode_steps)
     rgba = None
     if specs is not None:
       idx = np.minimum(np.arange(chunk, chunk + B), n_eps - 1)
@@ -552,11 +591,12 @@ def run_controller_batched(args):
           env, config, model, goal_conditioned, B,
           tgt_frames=_goal_frames(config, tgt_all, tgt_depth_all, idx,
                                   env.device),
-          n_steps=episode_steps, es0=es0, carry_mode=carry_mode,
-          collect_frames=V)
+          n_steps=episode_steps, es0=es0, step_textures=step_textures,
+          carry_mode=carry_mode, collect_frames=V)
     else:
       agg = evaluate_batched(env, config, model, goal_conditioned, B,
                              generator=gen, n_steps=episode_steps,
+                             step_textures=step_textures,
                              carry_mode=carry_mode, collect_frames=V)
     frames = None
     if V:
@@ -702,6 +742,10 @@ def run_controller(args):
   episode_steps = _episode_steps(args, EPISODE_STEPS_CONTROL)
   env.setup()
   gen = torch.Generator().manual_seed(args.seed)
+  viewer = None
+  if args.rendering_mode == 'viewer':   # live display
+    from ..render.viewer import TerminalViewer
+    viewer = TerminalViewer()
   eval_results = []
   with open(os.path.join(wrk_dir, 'eval_results.csv'), 'w',
             newline='') as csv_report:
@@ -724,11 +768,13 @@ def run_controller(args):
       predictor.reset()
       if args.goal_condition == 'target' and target_frames is not None:
         predictor.set_goal(np.asarray(target_frames[i], np.float32))
-      for _ in range(episode_steps):
+      for t in range(episode_steps):
         rgb, depth = env.render(es)
         rgb = rgb[0].cpu().numpy()
         if video is not None:
           video.feed(rgb)
+        if viewer is not None:
+          viewer.feed(rgb, hud=f'episode {episode_id} t={t}')
         obs_frame = rgb.astype(np.float32) / 255.0
         if args.observation_format == 'rgbd':
           obs_frame = np.concatenate(
@@ -756,6 +802,8 @@ def run_controller(args):
         avg = np.mean([r[k] for r in eval_results]) * 100
         print(f'>>> Current average success rate for {k}: {avg:.2f}')
       writer.writerow(spec_row)
+  if viewer is not None:
+    viewer.close()
   _write_final_results(wrk_dir, eval_results)
   return eval_results
 

@@ -365,13 +365,52 @@ def test_dry_run_writes_initial_frames(monkeypatch, tmp_path):
                 if f.endswith('.png')) == ['init_0001.png', 'init_0002.png']
 
 
+def _gif(path, colors):
+  from PIL import Image
+  frames = [Image.new('RGB', (24, 24), c) for c in colors]
+  frames[0].save(path, save_all=True, append_images=frames[1:])
+  return str(path)
+
+
 @pytest.mark.parametrize('flags', [
-    ['--background_video', 'clip.mp4'], ['--rendering_mode', 'viewer'],
+    ['--background_video', 'clip.gif'], ['--rendering_mode', 'viewer'],
     ['--num_devices', '2']])
-def test_unported_sim_options_raise(tmp_path, flags):
-  with pytest.raises(NotImplementedError, match='item 1[78]'):
-    gym_pickplace.main(gym_pickplace.parse(DEV + [
-        '--wrk_dir', str(tmp_path)] + flags))
+def test_unported_sim_options_raise(monkeypatch, tmp_path, flags):
+  """--num_devices > 1 is not ported and raises.  The background video
+  (a GIF cycled onto the wall, one frame a step) and the viewer mode are
+  ported: a small collect runs with each, and the background video is
+  rejected with a state-only collect, as in the JAX package."""
+  if flags[0] == '--num_devices':
+    with pytest.raises(NotImplementedError, match='item 18'):
+      gym_pickplace.main(gym_pickplace.parse(DEV + [
+          '--wrk_dir', str(tmp_path)] + flags))
+    return
+  monkeypatch.setattr(sim, 'GeecoEnv', functools.partial(EB.GeecoEnv,
+                                                         **SMALL))
+  if flags[0] == '--background_video':
+    flags = [flags[0], _gif(tmp_path / flags[1],
+                            [(255, 0, 0), (0, 0, 255)])]
+    with pytest.raises(SystemExit, match='background_video'):
+      _collect(str(tmp_path / 'states'), 'states', flags)
+
+  # the wall shows in the frame from 128 px with these binning caps
+  res = ['--frame_res', '128', '128', '--renderer_trim', '4096,1024']
+
+  def collect(wrk, extra):
+    gym_pickplace.main(gym_pickplace.parse(DEV + res + [
+        '--wrk_dir', wrk, '--sim_mode', 'collect', '--dataset_formats',
+        'npz', '--num_envs', '2', '--end_idx', '2', '--max_episode_steps',
+        '2'] + extra))
+    data = os.path.join(wrk, 'collect', 'data')
+    assert sorted(f for f in os.listdir(data) if f.endswith('.npz')) == [
+        'replay_buffer_0001.npz', 'replay_buffer_0002.npz']
+    return np.load(os.path.join(data, 'replay_buffer_0001.npz'))['rgb']
+
+  rgb = collect(str(tmp_path / 'run'), flags)
+  assert rgb.shape == (2, 128, 128, 3)
+  if flags[0] == '--background_video':
+    # the same seed without the video: only the frames differ
+    assert (rgb != collect(str(tmp_path / 'plain'), [])).any()
 
 
 def test_unported_trainer_options_raise(tmp_path):

@@ -102,7 +102,7 @@ def env():
   return e
 
 
-def test_closed_loop_batched_eval(env):
+def test_closed_loop_batched_eval(env, monkeypatch):
   """Reset, two closed-loop control steps of two envs, eval-video frames:
   finite metrics, bounded goal distances."""
   cfg = _config(img_height=64, img_width=64, window_size=2)
@@ -116,8 +116,25 @@ def test_closed_loop_batched_eval(env):
     assert bool(torch.isfinite(v).all()), k
   assert float(agg['min_goal_dist'].min()) >= 0.0
   assert float(agg['max_goal_dist'].max()) < 2.0
-  with pytest.raises(NotImplementedError):
-    TC.evaluate_batched(env, cfg, model, True, 2, step_textures=frames)
+  # per-step background frames: step t renders with frame t on the wall
+  R = env.renderer.scene.tex_res
+  tex = torch.rand((2, R, R, 3), generator=torch.Generator().manual_seed(2))
+  seen = []
+  render = env.render
+
+  def spy(es, textures=None):
+    seen.append(textures)
+    return render(es, textures=textures)
+
+  monkeypatch.setattr(env, 'render', spy)
+  agg_t, frames_t = TC.evaluate_batched(
+      env, cfg, model, True, 2, torch.Generator().manual_seed(1), n_steps=2,
+      collect_frames=1, step_textures=tex)
+  monkeypatch.undo()
+  assert frames_t.shape == frames.shape
+  assert [torch.equal(s, env.background_textures(t))
+          for s, t in zip(seen, tex)] == [True, True]
+  assert bool(torch.isfinite(agg_t['min_goal_dist']).all())
   with pytest.raises(NotImplementedError):
     TC.evaluate_batched(env, cfg, model, True, 2, mesh=object())
 

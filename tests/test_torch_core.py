@@ -235,6 +235,9 @@ def test_port_import_leaves_jax_out_of_sys_modules():
           'import geeco_tpu_torch.data.episode; '
           'import geeco_tpu_torch.run.sim; '
           'import geeco_tpu_torch.run.train_e2evmc; '
+          'import geeco_tpu_torch.run.viewer; '
+          'import geeco_tpu_torch.data.videos; '
+          'import geeco_tpu_torch.render.viewer; '
           'bad = [m for m in sys.modules if m.split(".")[0] in '
           '("jax", "flax", "optax", "geeco_tpu")]; print(bad); '
           'sys.exit(1 if bad else 0)')

@@ -132,11 +132,27 @@ def test_recorded_frames_are_the_renders(recorded):
     assert torch.equal(trec['depth'][:, t], depth), t
 
 
-def test_record_fn_rejects_textures(recorded):
+def test_record_fn_rejects_textures(recorded, monkeypatch):
+  """A step's background frame goes to the render as the texture stack
+  with that frame on the wall, and the record holds that render; a frame
+  of the wrong texel grid is rejected."""
   _, te, es0, _, _ = recorded
-  record = TE.make_record_fn(te, with_frames=False)
-  with pytest.raises(NotImplementedError, match='item 17'):
-    record(te, es0, torch.zeros(2, 4), None, textures=torch.zeros(1))
+  record = TE.make_record_fn(te, with_frames=True)
+  R = te.renderer.scene.tex_res
+  red = torch.zeros(R, R, 3)
+  red[..., 0] = 1.0
+  seen, render = [], te.render
+  monkeypatch.setattr(te, 'render', lambda es, textures=None: (
+      seen.append(textures), render(es, textures=textures))[1])
+  rec = record(te, es0, torch.zeros(2, 4), None, textures=red)
+  monkeypatch.undo()
+  tex = te.background_textures(red)
+  assert len(seen) == 1 and torch.equal(seen[0], tex)
+  assert torch.equal(tex[te.background_slot()], red)
+  assert torch.equal(rec['rgb'], te.render(es0, textures=tex)[0])
+  with pytest.raises(ValueError, match='textures'):
+    record(te, es0, torch.zeros(2, 4), None, textures=torch.zeros(R + 1, R,
+                                                                  3))
 
 
 # ---------------------------------------------------------------- 2. batches

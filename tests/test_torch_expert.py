@@ -29,6 +29,7 @@ from geeco_tpu.envs.base import EnvState as JEnvState
 from geeco_tpu.envs.base import make_env as jmake_env
 from geeco_tpu.expert import policies as JP
 from geeco_tpu_torch.core import convert
+from geeco_tpu_torch.data import episode as TE
 from geeco_tpu_torch.envs.base import ResetSpec
 from geeco_tpu_torch.envs.base import make_env as tmake_env
 from geeco_tpu_torch.expert import policies as P
@@ -343,7 +344,21 @@ def test_rollout_with_noise_matches_jax(scenes):
 
 
 def test_rollout_rejects_step_textures(scenes):
+  """Per-step background frames reach the record function, step by step;
+  a texel grid of the wrong size is rejected by the render."""
   _, te, es, _, _ = scenes[0]['pad2-cube2']
-  with pytest.raises(NotImplementedError, match='texture'):
-    P.rollout(te, es, P.make_expert(te), length=1,
+  R = te.renderer.scene.tex_res
+  tex = torch.rand((2, R, R, 3), generator=torch.Generator().manual_seed(0))
+  seen = []
+
+  def record(env, es_t, action, xs, textures=None):
+    seen.append(textures)
+    return action
+
+  P.rollout(te, es, P.make_expert(te), length=2, record_fn=record,
+            step_textures=tex)
+  assert len(seen) == 2 and all(torch.equal(s, t) for s, t in zip(seen, tex))
+  frame_fn = TE.make_record_fn(te, with_frames=True, with_depth=False)
+  with pytest.raises(ValueError, match='textures'):
+    P.rollout(te, es, P.make_expert(te), length=1, record_fn=frame_fn,
               step_textures=torch.zeros(1, 8, 8, 3))

@@ -67,7 +67,13 @@ def test_render_from_qpos_is_render(slice_envs):
   rgb_r, depth_r = te.render(es)
   assert rgb.shape == (2, 64, 64, 3) and rgb.dtype == torch.uint8
   assert torch.equal(rgb, rgb_r) and torch.equal(depth, depth_r)
-  with pytest.raises(NotImplementedError):
+  # with a texture stack per env, too; a frame is no texture stack
+  tex = torch.rand((2,) + te.renderer.scene.tex_default.shape,
+                   generator=torch.Generator().manual_seed(0))
+  rgb_t, _ = te.render_from_qpos(es.phys.qpos, mocap, es.rgba, textures=tex)
+  assert torch.equal(rgb_t, te.render(es, textures=tex)[0])
+  assert not torch.equal(rgb_t, rgb)
+  with pytest.raises(ValueError, match='textures'):
     te.render_from_qpos(es.phys.qpos, mocap, es.rgba, textures=rgb)
 
 

@@ -110,6 +110,23 @@ Phases; any failure exits non-zero:
      raster launch a render), one profiled control step (launches per
      substep, device time), a control step of each pallas env (one PSD
      launch a substep) and the PSD kernel's time at those shapes
+  14. the renderer's options on slice 1's settled state at B=64, in this
+     process beside the replays: the production render takes the
+     hierarchical path and launches the raster kernel once; backend='jnp'
+     (flat binning, plain PyTorch) launches it not at all; flat, and
+     analytic rects with textures, shadows and depth_gl, each equal to the
+     CPU port's frame in env 0 (depth_gl in [0, 1]); tiles 8 and 32 (256
+     px) and 10 (320 px) launch the kernel once each, bit-equal to its twin
+     on their coefficients; the gripper camera's frame finite; the MuJoCo
+     ray-cast depth bounds of tests/test_render_golden.py on pad2cube2's
+     three fixture frames for the auto, jnp and jnp+analytic variants; a
+     control step under mass_inverse='blockgj' against 'chol' (at the CPU
+     test's 2 substeps of 8 iterations, to its tolerance; at the production
+     physics, the per-env median to 1e-6, the largest env printed beside
+     chol's own spread under a 1e-7 change of qvel); a 2-substep
+     control step profiled through utils/profiling.trace (non-empty file);
+     --num_devices above the card count raises.  Alone at the end with
+     phase 3c: the raster kernel's time at each of those tile sides
 
 Phases 5 and 8, the two replays at B=1, the two replays of phase 13, the
 two parts of phase 12 and phase 13's other scenes run in a process each
@@ -122,6 +139,10 @@ warm-up step, and phase 13's textured render, PSD checks and set-ups.  The
 timed parts of phases 3, 4, 7, 10, 11 and 13 wait for those processes to
 end and run alone; phase 12's rates are taken beside them, on a shared
 host.
+
+The kernels line holds the raster kernel (phases 3, 4, 10-14), the PSD
+solve (phases 6, 7, 13) and the raster kernel at tiles 8, 32 and 10
+(phase 14).
 
 The line before the last two is a JSON object describing each kernel; then
 the card's name and power limit; the last line is {"ok": true, "device":
@@ -241,6 +262,20 @@ SCENES_SUMMARY = os.path.join(ROOT, 'build', 'scenes_smoke.json')
 TIMED_SCENES = ('pad2-cube2-clutter4', 'nut-cone')
 SCENE_STEPS = 3
 BACKGROUND_GIF = os.path.join(ROOT, 'build', 'chip_smoke_background.gif')
+# phase 14: one control step under mass_inverse='blockgj' against 'chol'
+# at tests/test_torch_levers.py's physics and tolerance
+BLOCKGJ_PHYSICS = dict(n_substeps=2, solver_iterations=8)
+BLOCKGJ_QPOS_ATOL = 1e-4
+# and at the production physics (20 substeps of 60 iterations) the per-env
+# median within BLOCKGJ_PROD_MEDIAN.  The largest env is printed beside the
+# spread that a relative change of qvel by 1e-7 gives the chol step, not
+# gated: a few envs amplify rounding without bound (one reached a state a
+# substep before a 32 kN contact impulse, which the JAX package's substep
+# reproduces from that state; even one substep from a common state moved
+# qvel 1.5e-2 apart on the card: PERF.md)
+BLOCKGJ_PROD_MEDIAN = 1e-6
+# K1's other tile sides, timed alone: (tile, frame side)
+OPTION_TILES = ((8, 256), (32, 256), (10, 320))
 
 
 def fail(msg: str):
@@ -372,6 +407,41 @@ def time_raster(coeffs, tile, sky, rk, card, label):
   return ms, plain_ms, b_live
 
 
+# profile_step reads a profile of fewer raw records through the profiler's
+# event objects as well
+CROSS_CHECK_RECORDS = 20000
+
+
+def _hidden_record(e) -> bool:
+  """A raw record the profiler's own event list leaves out (memory
+  records, hidden events), by the test it applies."""
+  from torch.autograd.profiler_util import _filter_name
+  return (_filter_name(e.name()) or
+          getattr(e, 'is_hidden_event', lambda: False)())
+
+
+def read_records(records):
+  """(kernel launches, device spans [(start, end) us]) of profiler records
+  given as (device type, name, start us, end us)."""
+  from torch.autograd import DeviceType
+  launches, spans = 0, []
+  for dev_type, name, start, end in records:
+    if dev_type == DeviceType.CUDA:
+      spans.append((start, end))
+    elif name.startswith(('cudaLaunchKernel', 'cuLaunchKernel')):
+      launches += 1
+  return launches, spans
+
+
+def union_ms(spans) -> float:
+  """The time the union of [(start, end) us] intervals covers, in ms."""
+  device_us, reach = 0.0, float('-inf')
+  for start, end in sorted(spans):
+    device_us += max(0.0, end - max(start, reach))
+    reach = max(reach, end)
+  return device_us / 1e3
+
+
 def profile_step(fn, label, card, path='', top=0):
   """One call of fn under torch.profiler: the CUDA kernel launches it made
   and the device time they took (profiled, so the host is slower than
@@ -381,7 +451,11 @@ def profile_step(fn, label, card, path='', top=0):
   The device time is the union of the device events' intervals (kernels,
   copies, sets).  (Summing every event's self device time would count a
   kernel twice, once as its own event and once under the operator that
-  launched it.)"""
+  launched it.)  Both are read from the profiler's raw records
+  (``read_records``): building its event objects (``prof.events()``) took
+  a control step's 125k records 33-65 s on the H100's host.  A profile of
+  fewer than CROSS_CHECK_RECORDS records is also read through
+  ``prof.events()``, and the two readings must agree."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
   torch.cuda.synchronize()
@@ -391,20 +465,25 @@ def profile_step(fn, label, card, path='', top=0):
     fn()
     torch.cuda.synchronize()
   wall = time.perf_counter() - t0
-  # one pass over the events (key_averages() is another, as long, and is
-  # built only for the tables)
-  launches, spans = 0, []
-  for e in prof.events():
-    if e.device_type == DeviceType.CUDA:
-      spans.append((e.time_range.start, e.time_range.end))
-    elif e.name.startswith(('cudaLaunchKernel', 'cuLaunchKernel')):
-      launches += 1
-  spans.sort()
-  device_us, reach = 0.0, float('-inf')
-  for start, end in spans:
-    device_us += max(0.0, end - max(start, reach))
-    reach = max(reach, end)
-  device_ms = device_us / 1e3
+  results = prof.profiler.kineto_results
+  records, t_ns = results.events(), results.trace_start_ns()
+  # times from the trace's start, as the event objects take them (the
+  # epoch's nanoseconds as a float64 of microseconds lose a quarter of one)
+  launches, spans = read_records(
+      (e.device_type(), e.name(), (e.start_ns() - t_ns) / 1e3,
+       (e.end_ns() - t_ns) / 1e3)
+      for e in records if not _hidden_record(e))
+  device_ms = union_ms(spans)
+  if len(records) < CROSS_CHECK_RECORDS:
+    # the same through the profiler's event objects (the tree it builds)
+    e_launches, e_spans = read_records(
+        (e.device_type, e.name, e.time_range.start, e.time_range.end)
+        for e in prof.events())
+    check(e_launches == launches and len(e_spans) == len(spans) and
+          abs(union_ms(e_spans) - device_ms) <= 1e-3 * device_ms + 1e-3,
+          f'{label}: the raw records give {launches} launches, '
+          f'{len(spans)} device events, {device_ms} ms; the event objects '
+          f'{e_launches}, {len(e_spans)}, {union_ms(e_spans)} ms')
   print(f'[profile] {label}: {launches} kernel launches, device time '
         f'{device_ms:.1f} ms ({len(spans)} device events), wall {wall:.2f} s '
         f'(profiled; then {time.perf_counter() - t0 - wall:.1f} s to read '
@@ -1589,6 +1668,271 @@ def time_k2_scenes(k2_scenes, SP, card, dev):
   return paths, shapes_out
 
 
+def _option_renderer(env, assets_model, **options):
+  """A renderer of slice 1's scene with ``options`` (compiled from the
+  model on the CPU, then on the card's model, as GeecoEnv builds its)."""
+  from geeco_tpu_torch.render import rasterizer as R
+  m, assets = assets_model
+  return R.build_renderer(m, assets, **options).replace(model=env.model)
+
+
+def _cpu_frame(assets_model, kin, rgba, textures=None, **options):
+  """Env 0's frame through the port on the CPU with ``options``."""
+  from geeco_tpu_torch.render import rasterizer as R
+  m, assets = assets_model
+  kin0 = kin.replace(**{f.name: getattr(kin, f.name)[:1].cpu()
+                        for f in dataclasses.fields(kin)})
+  tex = None if textures is None else textures[:1].cpu()
+  return R.build_renderer(m, assets, **options).render(
+      kin0, rgba[:1].cpu(), tex)
+
+
+def _frame_vs_cpu(rgb, depth, ref, label):
+  """Env 0 of a card frame against the CPU port's frame: the share of
+  pixels that differ within CPU_FRAME_TOL, depth on the others within
+  1e-4."""
+  rgb_c, depth_c = ref
+  mism = (rgb_c[0] != rgb[0].cpu()).any(-1)
+  diff = float(mism.float().mean())
+  derr = float((depth_c[0] - depth[0].cpu())[~mism].abs().max())
+  print(f'[options] {label}: env 0, card vs CPU port: {diff:.5f} of pixels '
+        f'differ (tolerance {CPU_FRAME_TOL:g}), depth max_abs_err {derr:.3g} '
+        'on the others', flush=True)
+  check(diff <= CPU_FRAME_TOL, f'{label}: card frame disagrees with the CPU')
+  check(derr <= 1e-4 + 1e-4 * float(depth_c.abs().max()),
+        f'{label}: card depth disagrees with the CPU')
+
+
+@contextlib.contextmanager
+def captured_raster(rk):
+  """Inside the block, every raster launch's (coeffs, tile, sky, output)
+  is kept (the launch itself is the path's: the counts stay its)."""
+  launch = rk.raster_tiles
+  seen = []
+
+  def capture(coeffs, tile, sky):
+    out = launch(coeffs, tile, sky)
+    seen.append((coeffs, tile, sky, out))
+    return out
+
+  capture.launches = launch.launches
+  rk.raster_tiles = capture
+  try:
+    yield seen
+  finally:
+    rk.raster_tiles = launch
+    launch.launches = capture.launches
+
+
+def option_phase(env, es, rk, card, dev):
+  """Phase 14, untimed (beside the replay processes): the renderer's
+  options, the block Gauss-Jordan mass inverse, a profiled control step
+  and the --num_devices check.  Returns (K1 launches of the production
+  render, {tile: (coeffs, launches, max_abs_err)} for the timed part, the
+  largest max_abs_err of the kernel on the option frames)."""
+  from geeco_tpu_torch.core import mjcf
+  from geeco_tpu_torch.envs.base import ASSET_ROOT, MODEL_XML, make_env
+  from geeco_tpu_torch.render import raster_kernel
+  from geeco_tpu_torch.utils import profiling
+  t_phase = time.perf_counter()
+  am = mjcf.load_model(os.path.join(ASSET_ROOT, 'envs',
+                                    MODEL_XML['pad2-cube2']))
+  kin = env.kin(es)
+  err = 0.0
+
+  # the production render (backend 'auto', 256x256): hierarchical, K1 once
+  before = dict(env.renderer.path_counts)
+  rk.raster_tiles.launches = 0
+  rgb, depth = env.render(es)
+  torch.cuda.synchronize()
+  prod_launches = rk.raster_tiles.launches
+  took = {k: v - before.get(k, 0) for k, v in env.renderer.path_counts.items()
+          if v != before.get(k, 0)}
+  print(f'[options] production render (auto, 256x256, B={ENVS}): paths '
+        f'{took}, {prod_launches} K1 launch', flush=True)
+  check(took == {'hierarchical': 1} and prod_launches == 1,
+        'the production render did not take the hierarchical path through '
+        'K1')
+
+  # flat binning (backend 'jnp'): plain PyTorch, no K1
+  r = _option_renderer(env, am, backend='jnp')
+  rk.raster_tiles.launches = 0
+  rgb, depth = r.render(kin, es.rgba)
+  torch.cuda.synchronize()
+  check(rk.raster_tiles.launches == 0 and r.path_counts == {'flat': 1},
+        f'backend=jnp: {rk.raster_tiles.launches} K1 launches, paths '
+        f'{r.path_counts}')
+  _frame_vs_cpu(rgb, depth, _cpu_frame(am, kin, es.rgba, backend='jnp'),
+                'flat (jnp)')
+
+  # analytic rects, textured (a background frame per env), shadows on,
+  # depth_gl
+  from geeco_tpu_torch.data.videos import VideoCycler
+  write_background_gif(BACKGROUND_GIF)
+  frames = VideoCycler(BACKGROUND_GIF).texel_steps(ENVS,
+                                                   env.renderer.scene.tex_res)
+  tex = env.background_textures(frames)
+  opts = dict(analytic_rects=True, depth_gl=True)
+  r = _option_renderer(env, am, **opts)
+  with captured_raster(rk) as seen:
+    rgb, depth = r.render(kin, es.rgba, tex)
+  torch.cuda.synchronize()
+  check(r.scene.rect_geom.size > 0 and r.shadows, 'no analytic rects')
+  check(bool(torch.isfinite(depth).all()) and float(depth.min()) >= 0.0 and
+        float(depth.max()) <= 1.0, 'depth_gl outside [0, 1]')
+  check(len(seen) == 1, f'{len(seen)} K1 launches for the rect render')
+  _frame_vs_cpu(rgb, depth, _cpu_frame(am, kin, es.rgba, tex, **opts),
+                'analytic rects + textures + shadows + depth_gl')
+
+  # K1 at other tile sides: launched once each, bit-equal to its twin
+  tiles = {}
+  for tile, res in OPTION_TILES:
+    r = _option_renderer(env, am, tile=tile, width=res, height=res)
+    rk.raster_tiles.launches = 0
+    with captured_raster(rk) as seen:
+      rgb, depth = r.render(kin, es.rgba)
+    torch.cuda.synchronize()
+    launches = rk.raster_tiles.launches
+    check(launches == 1 and len(seen) == 1 and
+          r.path_counts == {'hierarchical': 1},
+          f'tile {tile}: {launches} K1 launches, paths {r.path_counts}')
+    coeffs, t, sky, (iz_k, c_k) = seen[0]
+    iz_r, c_r = rk.raster_tiles_reference(coeffs, t, sky)
+    n_diff = int(((iz_k != iz_r) | (c_k != c_r)).sum())
+    e = max(float((iz_k - iz_r).abs().max()), float((c_k - c_r).abs().max()))
+    path = raster_kernel.kernel_limits(tile)
+    print(f'[options] tile {tile} at {res}x{res} (K1 {path} path): coeffs '
+          f'{tuple(coeffs.shape)}, {n_diff} pixels differ from the twin, '
+          f'max_abs_err {e}', flush=True)
+    check(n_diff == 0, f'K1 at tile {tile} is not bit-equal to its twin')
+    check(bool(torch.isfinite(depth).all()) and rgb.shape == (ENVS, res,
+                                                              res, 3),
+          f'tile {tile}: frame {tuple(rgb.shape)} not finite')
+    tiles[tile] = (coeffs, launches, e)
+    err = max(err, e)
+
+  # the gripper camera (it rides on the gripper link)
+  r = _option_renderer(env, am, camera='gripper_camera_rgb')
+  rgb, depth = r.render(kin, es.rgba)
+  torch.cuda.synchronize()
+  check(bool(torch.isfinite(depth).all()), 'gripper camera depth not finite')
+  print(f'[options] gripper_camera_rgb: finite, mean depth '
+        f'{float(depth.mean()):.3f} m', flush=True)
+
+  # the MuJoCo ray-cast depth of pad2cube2's fixture frames
+  # (tests/test_render_golden.py's bounds)
+  raycast_check(am, env)
+
+  # mass_inverse='blockgj' against 'chol', from the state a first control
+  # step left: a control step at the CPU test's physics (2 substeps of 8
+  # PSD iterations) to its tolerance, and at the production physics
+  base = torch.tensor([0.1, 0.0, 0.2, 1.0], device=dev).expand(ENVS, 4)
+  es1 = env.step(es, base)
+  chol_env = make_env('pad2-cube2', device='cuda', **BLOCKGJ_PHYSICS)
+  bgj_env = make_env('pad2-cube2', device='cuda', mass_inverse='blockgj',
+                     **BLOCKGJ_PHYSICS)
+  d = (chol_env.step(es1, base).phys.qpos -
+       bgj_env.step(es1, base).phys.qpos).abs().amax(-1)
+  print(f"[options] one control step at B={ENVS} (the CPU test's physics), "
+        f'blockgj vs chol: qpos max_abs_err per env: median '
+        f'{float(d.median()):.3g}, max {float(d.max()):.3g}', flush=True)
+  check(bool(torch.isfinite(d).all()) and float(d.max()) <= BLOCKGJ_QPOS_ATOL,
+        f'the blockgj control step disagrees with chol: {float(d.max())} > '
+        f'{BLOCKGJ_QPOS_ATOL}')
+  del chol_env, bgj_env
+  bgj_env = make_env('pad2-cube2', device='cuda', mass_inverse='blockgj')
+  chol_q = env.step(es1, base).phys.qpos
+  d = (chol_q - bgj_env.step(es1, base).phys.qpos).abs().amax(-1)
+  w = torch.zeros(ENVS, device=dev)
+  for sign in (1, -1):
+    pert = es1.replace(phys=es1.phys.replace(
+        qvel=es1.phys.qvel * (1 + sign * 1e-7)))
+    w = torch.maximum(w, (chol_q - env.step(pert, base).phys.qpos)
+                      .abs().amax(-1))
+  print(f'[options] one control step at B={ENVS} (production physics), '
+        f'blockgj vs chol: qpos max_abs_err per env: median '
+        f'{float(d.median()):.3g}, max {float(d.max()):.3g} (env '
+        f'{int(d.argmax())}); chol vs chol from qvel * (1 +- 1e-7): median '
+        f'{float(w.median()):.3g}, max {float(w.max()):.3g}', flush=True)
+  check(bool(torch.isfinite(d).all()) and
+        float(d.median()) <= BLOCKGJ_PROD_MEDIAN,
+        f'the blockgj control step at the production physics disagrees with '
+        f'chol: median {float(d.median())} > {BLOCKGJ_PROD_MEDIAN}')
+  del es1, pert, chol_q, bgj_env
+
+  # one control step profiled through utils/profiling.trace (a 2-substep
+  # env: a 20-substep step has ~125k events, whose export takes a minute)
+  penv = make_env('pad2-cube2', device='cuda', n_substeps=2)
+  trace_dir = os.path.join(ROOT, 'build', 'trace')
+  shutil.rmtree(trace_dir, ignore_errors=True)
+  with profiling.trace(trace_dir):
+    penv.step(es, base)
+    torch.cuda.synchronize()
+  files = os.listdir(trace_dir)
+  size = sum(os.path.getsize(os.path.join(trace_dir, f)) for f in files)
+  print(f'[options] profiling.trace of a 2-substep control step: {files}, '
+        f'{size} bytes', flush=True)
+  check(len(files) == 1 and size > 0, 'profiling.trace wrote no trace')
+  del penv
+
+  # --num_devices 2 on a machine with one card raises before any rank
+  from geeco_tpu_torch.run import gym_pickplace
+  n = torch.cuda.device_count() + 1
+  try:
+    gym_pickplace.main(gym_pickplace.parse([
+        '--wrk_dir', os.path.join(ROOT, 'build', 'num_devices'),
+        '--sim_mode', 'collect', '--num_envs', str(2 * n),
+        '--num_devices', str(n)]))
+    fail(f'--num_devices {n} with {n - 1} card(s) did not raise')
+  except RuntimeError as e:
+    print(f'[options] --num_devices {n}: raised as it should: {e}',
+          flush=True)
+  print(f'[options] phase 14 took {time.perf_counter() - t_phase:.1f} s '
+        '(beside the replay processes)', flush=True)
+  return prod_launches, tiles, err
+
+
+def raycast_check(am, env):
+  """The port's depth on the card against the MuJoCo ray-cast fixture of
+  pad2cube2 (three frames), for the variants tests/test_render_golden.py
+  runs: no sky holes, exact interiors, the > 2 cm and > 10 cm areas and the
+  silhouette IoU bounded."""
+  from geeco_tpu_torch.core.model import make_state
+  golden = np.load(os.path.join(ROOT, 'tests', 'fixtures',
+                                'mujoco_raycast_pad2cube2.npz'))
+  m = env.model
+  n = golden['qpos'].shape[0]
+  st = make_state(m, n)
+  as_t = lambda k: torch.as_tensor(golden[k], dtype=torch.float32,
+                                   device=st.qpos.device)
+  st = st.replace(qpos=as_t('qpos'), mocap_pos=as_t('mocap_pos'),
+                  mocap_quat=as_t('mocap_quat'))
+  kin = env.stepper.fk(st)
+  H, W = int(golden['height']), int(golden['width'])
+  for variant in ('auto', 'jnp', 'jnp-analytic'):
+    backend, _, opt = variant.partition('-')
+    r = _option_renderer(env, am, width=W, height=H, backend=backend,
+                         analytic_rects=opt == 'analytic')
+    _, depth = r.render(kin)
+    depth = depth.cpu().numpy()
+    worst = []
+    for k, (d, g) in enumerate(zip(depth, golden['depth'])):
+      err = np.abs(d - g)
+      ours, mjs = d < 2.0, g < 2.0
+      stats = dict(holes=np.mean((d > 9.9) & (g > 0)),
+                   median=np.median(err), frac2cm=np.mean(err > 0.02),
+                   frac10cm=np.mean(err > 0.10),
+                   iou=(ours & mjs).sum() / max((ours | mjs).sum(), 1))
+      worst.append(stats)
+      check(stats['holes'] < 1e-3 and stats['median'] < 1e-3 and
+            stats['frac2cm'] < 0.07 and stats['frac10cm'] < 0.05 and
+            stats['iou'] > 0.965,
+            f'MuJoCo ray-cast bounds fail for {variant} frame {k}: {stats}')
+    print(f'[options] MuJoCo ray-cast depth, {variant}: '
+          + '; '.join(', '.join(f'{k} {v:.4f}' for k, v in w.items())
+                      for w in worst), flush=True)
+
+
 def main():
   ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   ap.add_argument('--profile', default='',
@@ -1862,6 +2206,11 @@ def drive(card, children, profile_path):
   scene_envs, e = scene_envs_setup(rk, dev)
   raster_err = max(raster_err, e)
 
+  # ---- 14a. the renderer's options, blockgj, profiling.trace and the
+  # --num_devices check, untimed
+  opt_launches, opt_tiles, e = option_phase(env, es, rk, card, dev)
+  raster_err = max(raster_err, e)
+
   # phases 5 and 8, the replays' processes; everything below is timed and
   # runs alone
   for child, which in zip(children, ('slice-1 replay', 'slice-2 replay',
@@ -1888,6 +2237,22 @@ def drive(card, children, profile_path):
   ms, plain_ms, raster_bound = time_raster(coeffs, TS, sky, rk, card, 'frame')
   time_raster(rnd_coeffs, TS, sky, rk, card, 'random')
   del coeffs, rnd_coeffs
+  # ---- 14b. K1 at the other tile sides, on phase 14's frame planes
+  tile_entries = []
+  for tile, res in OPTION_TILES:
+    t_coeffs, t_launches, t_err = opt_tiles.pop(tile)
+    t_ms, t_plain, t_bound = time_raster(t_coeffs, tile, sky, rk, card,
+                                         f'tile {tile} at {res}x{res}')
+    tile_entries.append({
+        'name': f'raster_tiles[tile={tile}]', 'route': 'cuda',
+        'source': 'geeco_tpu_torch/csrc/raster_tiles.cu',
+        'replaces': 'geeco_tpu/render/rasterizer.py:778',
+        'launches': t_launches, 'max_abs_err': t_err, 'ms': t_ms,
+        'plain_ms': t_plain, 'bound_ms': t_bound[0],
+        'bound_by': t_bound[1], 'library_ms': None,
+        'path': rk.kernel_limits(tile),
+        'shape': list(t_coeffs.shape)})
+    del t_coeffs
 
   # ---- 4b. slice 1: control steps of step + render
   base = torch.tensor([0.1, 0.0, 0.2, 1.0], device=dev).expand(ENVS, 4)
@@ -2002,11 +2367,12 @@ def drive(card, children, profile_path):
       'launches': (launches + train_launches + cl_launches +
                    sum(cli_launches.values()) + tex_launches +
                    sum(scenes['launches'].values()) +
-                   sum(scene_launches.values())),
+                   sum(scene_launches.values()) + opt_launches),
       'launches_by_path': {'slice1': launches, 'trainer': train_launches,
                            'closed_loop': cl_launches, **cli_launches,
                            'textured': tex_launches, **scenes['launches'],
-                           **scene_launches},
+                           **scene_launches,
+                           'options_production': opt_launches},
       'max_abs_err': raster_err,
       'ms': ms, 'plain_ms': plain_ms, 'bound_ms': raster_bound[0],
       'bound_by': raster_bound[1], 'library_ms': None,
@@ -2020,7 +2386,7 @@ def drive(card, children, profile_path):
       'ms': psd_ms, 'plain_ms': psd_plain_ms, 'bound_ms': psd_bound[0],
       'bound_by': psd_bound[1], 'library_ms': None,
       'by_shape': psd_shapes,
-  }]
+  }] + tile_entries
 
 
 if __name__ == '__main__':

@@ -10,7 +10,8 @@
 //
 // Layout: coeffs [n_blocks = B*n_tiles][13][K] float32, tile-major, rows
 // A0,B0,C0, A1,B1,C1, A2,B2,C2, Az,Bz,Cz, colour.  Outputs izbuf, cbuf
-// [n_blocks][tile*tile].  tile is a multiple of 4, at most 16.
+// [n_blocks][tile*tile].  Any tile side >= 1: sides of 4, 8, 12 and 16
+// take the patch kernel, every other side the general kernel (below).
 //
 // What bounds it on this card.  Tested against every slot, a pixel costs
 // ~35 instructions per slot (13 scalar shared-memory loads, 16 rounded
@@ -45,6 +46,14 @@
 //    patch, and the rounded products a*px (one per column) and b*py (one per
 //    row) are shared across it: ~18 instructions per pixel and slot.
 //    Stores are float4, a row of the patch each.
+//  * Every other tile side (10, 20, 32, ...) takes the general kernel: the
+//    same warp per tile, the same staging and cull, but each lane holds
+//    kGeneralPx pixels strided by 32 (pixel p = pass*256 + j*32 + lane,
+//    masked past tile*tile), one coefficient load per slot shared by them,
+//    and the tile is swept in passes of 32*kGeneralPx pixels, each pass
+//    reading the slot list again (from L2 after the first).  It is the
+//    simple form: no shared a*px products, scalar stores (coalesced across
+//    the lanes).
 //
 // Numerics: each affine form is (a*px + b*py) + c with explicitly rounded
 // multiplies and adds (__fmul_rn/__fadd_rn are never contracted; the
@@ -70,6 +79,49 @@ __device__ __forceinline__ bool edge_misses(float a, float b, float c,
                                             float lo, float hi) {
   return affine(a, b, c, lo, lo) < 0.0f && affine(a, b, c, hi, lo) < 0.0f &&
          affine(a, b, c, lo, hi) < 0.0f && affine(a, b, c, hi, hi) < 0.0f;
+}
+
+// Stage the 32 slots k0..k0+31 of a tile (held in `cur`, loaded one chunk
+// earlier), start loading the next 32 into `nxt`, and compact the slots
+// that can touch the tile, in slot order, into the warp's shared chunk.
+// Returns how many were kept.  Ends with __syncwarp(): the chunk is ready.
+__device__ __forceinline__ int stage_chunk(const float* __restrict__ src,
+                                           int K, int k0, int lane,
+                                           float (&cur)[kCoeffs],
+                                           float (&nxt)[kCoeffs],
+                                           float* slots, float lo, float hi) {
+#pragma unroll
+  for (int q = 0; q < kCoeffs; ++q) cur[q] = nxt[q];
+  const bool in = k0 + lane < K;
+  {
+    const int k = k0 + 32 + lane;
+    const bool more = k < K;
+#pragma unroll
+    for (int q = 0; q < kCoeffs; ++q) nxt[q] = more ? src[q * K + k] : 0.0f;
+  }
+  const bool keep = in && !(edge_misses(cur[0], cur[1], cur[2], lo, hi) ||
+                            edge_misses(cur[3], cur[4], cur[5], lo, hi) ||
+                            edge_misses(cur[6], cur[7], cur[8], lo, hi));
+  const unsigned kept = __ballot_sync(kFull, keep);
+  if (keep) {
+    float4* dst = reinterpret_cast<float4*>(
+        slots + __popc(kept & ((1u << lane) - 1u)) * kSlotWords);
+    dst[0] = make_float4(cur[0], cur[1], cur[2], cur[3]);
+    dst[1] = make_float4(cur[4], cur[5], cur[6], cur[7]);
+    dst[2] = make_float4(cur[8], cur[9], cur[10], cur[11]);
+    dst[3] = make_float4(cur[12], 0.0f, 0.0f, 0.0f);
+  }
+  __syncwarp();
+  return __popc(kept);
+}
+
+// The first chunk's loads, before the slot loop.
+__device__ __forceinline__ void load_first(const float* __restrict__ src,
+                                           int K, int lane,
+                                           float (&nxt)[kCoeffs]) {
+  const bool in = lane < K;
+#pragma unroll
+  for (int q = 0; q < kCoeffs; ++q) nxt[q] = in ? src[q * K + lane] : 0.0f;
 }
 
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
@@ -104,35 +156,9 @@ raster_tiles_kernel(const float* __restrict__ coeffs,
     }
 
   float cur[kCoeffs], nxt[kCoeffs];
-  {
-    const bool in = lane < K;
-#pragma unroll
-    for (int q = 0; q < kCoeffs; ++q) nxt[q] = in ? src[q * K + lane] : 0.0f;
-  }
+  load_first(src, K, lane, nxt);
   for (int k0 = 0; k0 < K; k0 += 32) {
-#pragma unroll
-    for (int q = 0; q < kCoeffs; ++q) cur[q] = nxt[q];
-    const bool in = k0 + lane < K;
-    {
-      const int k = k0 + 32 + lane;
-      const bool more = k < K;
-#pragma unroll
-      for (int q = 0; q < kCoeffs; ++q) nxt[q] = more ? src[q * K + k] : 0.0f;
-    }
-    const bool keep = in && !(edge_misses(cur[0], cur[1], cur[2], lo, hi) ||
-                              edge_misses(cur[3], cur[4], cur[5], lo, hi) ||
-                              edge_misses(cur[6], cur[7], cur[8], lo, hi));
-    const unsigned kept = __ballot_sync(kFull, keep);
-    const int n = __popc(kept);
-    if (keep) {
-      float4* dst = reinterpret_cast<float4*>(
-          slots + __popc(kept & ((1u << lane) - 1u)) * kSlotWords);
-      dst[0] = make_float4(cur[0], cur[1], cur[2], cur[3]);
-      dst[1] = make_float4(cur[4], cur[5], cur[6], cur[7]);
-      dst[2] = make_float4(cur[8], cur[9], cur[10], cur[11]);
-      dst[3] = make_float4(cur[12], 0.0f, 0.0f, 0.0f);
-    }
-    __syncwarp();
+    const int n = stage_chunk(src, K, k0, lane, cur, nxt, slots, lo, hi);
     if (has_patch) {
       for (int s = 0; s < n; ++s) {
         const float4* q = reinterpret_cast<const float4*>(
@@ -185,19 +211,86 @@ raster_tiles_kernel(const float* __restrict__ coeffs,
   }
 }
 
+constexpr int kGeneralPx = 8;   // pixels per lane and pass, general kernel
+
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+raster_tiles_general_kernel(const float* __restrict__ coeffs,
+                            float* __restrict__ izbuf,
+                            float* __restrict__ cbuf, int n_tiles, int K,
+                            int tile, float sky) {
+  __shared__ __align__(16) float chunk[kWarpsPerBlock][32 * kSlotWords];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long t = static_cast<long long>(blockIdx.x) * kWarpsPerBlock +
+                      warp;
+  if (t >= n_tiles) return;  // whole warps leave; there is no block barrier
+  const float* src = coeffs + t * kCoeffs * K;
+  float* slots = chunk[warp];
+  const int npx = tile * tile;
+  const float lo = 0.5f;
+  const float hi = static_cast<float>(tile) - 0.5f;
+  const long long base = t * npx;
+
+  for (int p0 = 0; p0 < npx; p0 += 32 * kGeneralPx) {
+    float px[kGeneralPx], py[kGeneralPx], iz[kGeneralPx], col[kGeneralPx];
+#pragma unroll
+    for (int j = 0; j < kGeneralPx; ++j) {
+      const int p = p0 + j * 32 + lane;
+      px[j] = static_cast<float>(p % tile) + 0.5f;
+      py[j] = static_cast<float>(p / tile) + 0.5f;
+      iz[j] = 0.0f;
+      col[j] = sky;
+    }
+    float cur[kCoeffs], nxt[kCoeffs];
+    load_first(src, K, lane, nxt);
+    for (int k0 = 0; k0 < K; k0 += 32) {
+      const int n = stage_chunk(src, K, k0, lane, cur, nxt, slots, lo, hi);
+      for (int s = 0; s < n; ++s) {
+        const float4* q = reinterpret_cast<const float4*>(
+            slots + s * kSlotWords);
+        const float4 q0 = q[0], q1 = q[1], q2 = q[2];
+        const float cs = q[3].x;
+#pragma unroll
+        for (int j = 0; j < kGeneralPx; ++j) {
+          const float e0 = affine(q0.x, q0.y, q0.z, px[j], py[j]);
+          const float e1 = affine(q0.w, q1.x, q1.y, px[j], py[j]);
+          const float e2 = affine(q1.z, q1.w, q2.x, px[j], py[j]);
+          const float izv = affine(q2.y, q2.z, q2.w, px[j], py[j]);
+          if (e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f && izv > iz[j]) {
+            iz[j] = izv;
+            col[j] = cs;
+          }
+        }
+      }
+      __syncwarp();  // the chunk is free for the next 32 slots
+    }
+#pragma unroll
+    for (int j = 0; j < kGeneralPx; ++j) {
+      const int p = p0 + j * 32 + lane;
+      if (p < npx) {
+        izbuf[base + p] = iz[j];
+        cbuf[base + p] = col[j];
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched).
 extern "C" int raster_tiles_f32(const float* coeffs, float* izbuf,
                                 float* cbuf, int n_blocks, int K, int tile,
                                 float sky, void* stream) {
+  if (tile < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (n_blocks == 0) return 0;
-  if (tile < 4 || tile > 16 || tile % 4)
-    return static_cast<int>(cudaErrorInvalidValue);
   const int grid = (n_blocks + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  raster_tiles_kernel<<<grid, 32 * kWarpsPerBlock, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      coeffs, izbuf, cbuf, n_blocks, K, tile, sky);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tile % 4 == 0 && tile <= 16)
+    raster_tiles_kernel<<<grid, 32 * kWarpsPerBlock, 0, st>>>(
+        coeffs, izbuf, cbuf, n_blocks, K, tile, sky);
+  else
+    raster_tiles_general_kernel<<<grid, 32 * kWarpsPerBlock, 0, st>>>(
+        coeffs, izbuf, cbuf, n_blocks, K, tile, sky);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -31,12 +31,16 @@ scene-conditional, as in the JAX package: ``psd_block`` with quota
 selection where a free body carries a mesh hull (ball-cup, bridge-pad,
 diamond-pad, nut-cone), else ``psd`` with the global top-K.
 ``start_sphere_r`` (0.03) is the radius of the ball the mocap start is
-drawn from by ``reset_random``.  ``renderer_kwargs`` passes ``shadows``,
-``tex_grid``, ``coarse_k`` and ``mid_k`` to ``build_renderer``; the JAX
-renderer's other options are not ported (they raise), nor are the TPU-only
-levers ``mass_inverse``, ``substep_unroll`` and ``solver_unroll`` (a value
-other than the default raises).  ``device`` defaults to the card: without
-one, construction raises unless ``device='cpu'`` is passed.
+drawn from by ``reset_random``.  ``renderer_kwargs`` passes any option of
+``build_renderer`` (``RENDERER_OPTIONS``: camera, tile sizes, near/far,
+culling, the flat or hierarchical path, analytic rects, depth_gl, ...), so
+the ``renderer_kwargs`` a dataset's meta records rebuild its renderer; an
+unknown key raises the ``TypeError`` of the call.  ``mass_inverse`` ('chol'
+or 'blockgj') picks how the physics applies the inverse mass matrix
+(``physics/dynamics.py``); ``substep_unroll`` and ``solver_unroll`` are the
+JAX package's scan-unroll hints, validated as there and without effect on
+the results (``physics/step.py``).  ``device`` defaults to the card:
+without one, construction raises unless ``device='cpu'`` is passed.
 
 ``render`` and ``render_from_qpos`` take ``textures``, which override the
 scene's textured surfaces for that render (the reference's background-video
@@ -48,6 +52,7 @@ render_fn).
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import os
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -61,7 +66,7 @@ from ..core.model import (Kin, State, get_joint_qpos, make_state,
                           set_joint_qpos)
 from ..physics import kinematics as K
 from ..physics.solver import METHODS
-from ..physics.step import Stepper, build_stepper
+from ..physics.step import Stepper, build_stepper, check_unroll
 from ..render.rasterizer import Renderer, build_renderer
 from ..utils.device import resolve_device
 from . import spawn
@@ -111,10 +116,10 @@ ROBOT_XPOS0_PICK = np.array([1.3419, 0.7491, 0.555])
 ROBOT_XPOS0_PUSH = np.array([1.3419, 0.7491, 0.8])
 EE_QUAT = np.array([1.0, 0.0, 1.0, 0.0]) / np.sqrt(2.0)
 GRIPPER_CTRL = {-1: -0.005, 0: 0.0, 1: 0.05}
-# the renderer options the port's build_renderer takes (the JAX package's
-# camera, tile, near/far, culling, backend and analytic-rect options are
-# constants here: ROADMAP Queue 1 items 7 and 19)
-RENDERER_OPTIONS = ('shadows', 'tex_grid', 'coarse_k', 'mid_k')
+# the options of build_renderer that renderer_kwargs may carry
+RENDERER_OPTIONS = tuple(
+    k for k in inspect.signature(build_renderer).parameters
+    if k not in ('model', 'assets', 'width', 'height'))
 
 # deterministic reset colours (pickplace.py:386-405)
 COLOR_MAP = {
@@ -195,20 +200,10 @@ class GeecoEnv:
                        f'got {rolling!r}')
     if solver_method is not None and solver_method not in METHODS:
       raise ValueError(f'unknown solver method {solver_method!r}')
-    # TPU-only levers (a While-loop workaround and XLA unroll counts)
-    levers = {'mass_inverse': (mass_inverse, 'chol'),
-              'substep_unroll': (substep_unroll, 1),
-              'solver_unroll': (solver_unroll, 1)}
-    for name, (value, default) in levers.items():
-      if value != default:
-        raise NotImplementedError(
-            f'{name}={value!r} is a TPU-only lever and is not ported '
-            f'(only {default!r})')
-    unported = sorted(set(renderer_kwargs or {}) - set(RENDERER_OPTIONS))
-    if unported:
-      raise NotImplementedError(
-          f'renderer options {unported} are not ported (ported: '
-          f'{", ".join(RENDERER_OPTIONS)}; ROADMAP Queue 1 items 7, 19)')
+    if mass_inverse not in ('chol', 'blockgj'):
+      raise ValueError(f'unknown mass_inverse {mass_inverse!r}')
+    for hint in (substep_unroll, solver_unroll):
+      check_unroll(hint)
     self.device = resolve_device(device)
     # physics is strict float32: no TF32 in the batched matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -251,6 +246,9 @@ class GeecoEnv:
     self.start_sphere_r = start_sphere_r
     self.settle_steps = settle_steps
     self.solver_iterations = solver_iterations
+    self.substep_unroll = substep_unroll
+    self.solver_unroll = solver_unroll
+    self.mass_inverse = mass_inverse
 
     # --- object / task structure from site names
     def sites_with(prefix):
@@ -307,7 +305,10 @@ class GeecoEnv:
     return self.stepper.step(phys, self.n_substeps, self.solver_iterations,
                              collide_every=self.collide_every,
                              solver_method=self.solver_method,
-                             hysteresis=self.hysteresis)
+                             hysteresis=self.hysteresis,
+                             unroll=self.substep_unroll,
+                             solver_unroll=self.solver_unroll,
+                             mass_inverse=self.mass_inverse)
 
   def _settle(self, phys: State) -> State:
     for _ in range(self.settle_steps):
@@ -384,44 +385,57 @@ class GeecoEnv:
         rgba[:, g] = color
     return rgba
 
-  def reset_random(self, batch: int, generator: torch.Generator
-                   ) -> EnvState:
-    """Randomised reset of ``batch`` envs (reference _reset_sim)."""
-    es = self._base_env_state(batch)
+  def reset_random(self, batch: int, generator: torch.Generator,
+                   rows: Optional[slice] = None) -> EnvState:
+    """Randomised reset of ``batch`` envs (reference _reset_sim).
+
+    ``rows``: build and settle only those of the ``batch`` envs.  The
+    random draws are made for all ``batch`` envs either way, so an env's
+    reset does not depend on which rows are built (each rank of a
+    data-parallel run takes its own)."""
+    sel = slice(None) if rows is None else rows
     pts = spawn.sample_spawn_points(generator, self.spawn_grid,
                                     len(self.obj_sites), batch
-                                    ).to(self.device)
+                                    )[sel].to(self.device)
+    start = spawn.sample_point_within_sphere(generator, self.start_sphere_r,
+                                             batch)[sel].to(self.device)
+    n = pts.shape[0]
+    es = self._base_env_state(n)
     qpos = es.phys.qpos
-    quat = self._tensor([1.0, 0, 0, 0]).expand(batch, 4)
-    z = torch.full((batch, 1), self.spawn_z, device=self.device)
+    quat = self._tensor([1.0, 0, 0, 0]).expand(n, 4)
+    z = torch.full((n, 1), self.spawn_z, device=self.device)
     for i, jname in enumerate(self.obj_joint_names):
       xy = pts[:, i]
       if self.goal_offset_x and self.obj_sites[i].startswith('goal'):
         xy = xy + self._tensor([self.goal_offset_x, 0.0])
       qpos = set_joint_qpos(self.model, qpos, jname,
                             torch.cat([xy, z, quat], -1))
-    mocap_pos = self._tensor(self.robot_xpos0) + \
-        spawn.sample_point_within_sphere(generator, self.start_sphere_r,
-                                         batch).to(self.device)
+    mocap_pos = self._tensor(self.robot_xpos0) + start
     phys = es.phys.replace(
         qpos=qpos, qvel=torch.zeros_like(es.phys.qvel),
         mocap_pos=mocap_pos[:, None],
-        mocap_quat=self._tensor(EE_QUAT).expand(batch, 1, 4).clone())
+        mocap_quat=self._tensor(EE_QUAT).expand(n, 1, 4).clone())
     phys = self._settle(phys)
     dev = generator.device
     task_goal = torch.randint(len(self.goal_sites), (batch,),
-                              generator=generator, device=dev)
+                              generator=generator, device=dev)[sel]
     task_object = torch.randint(len(self.cube_sites), (batch,),
-                                generator=generator, device=dev)
+                                generator=generator, device=dev)[sel]
     return es.replace(phys=phys, task_goal=task_goal.to(self.device),
                       task_object=task_object.to(self.device),
-                      rgba=self._recolor(batch, generator))
+                      rgba=self._recolor(batch, generator)[sel])
 
   def reset_to(self, spec: ResetSpec,
-               generator: Optional[torch.Generator] = None) -> EnvState:
-    """Deterministic queued reset of B = len(spec.mocap_qpos) envs."""
+               generator: Optional[torch.Generator] = None,
+               rows: Optional[slice] = None) -> EnvState:
+    """Deterministic queued reset of B = len(spec.mocap_qpos) envs;
+    ``rows`` as in ``reset_random`` (the recolour draws are made for all
+    B)."""
     batch = spec.mocap_qpos.shape[0]
-    es = self._base_env_state(batch)
+    if rows is not None:
+      spec = ResetSpec(*(None if f is None else f[rows] for f in spec))
+    n = spec.mocap_qpos.shape[0]
+    es = self._base_env_state(n)
     qpos = es.phys.qpos
     obj_qpos = spec.obj_qpos.to(self.device, torch.float32)
     for i, jname in enumerate(self.obj_joint_names):
@@ -438,12 +452,13 @@ class GeecoEnv:
         mocap_pos=mocap[:, None, :3],
         mocap_quat=gm.quat_normalize(mocap[:, 3:])[:, None])
     phys = self._settle(phys)
+    rgba = self._recolor(batch, generator)
     return es.replace(
         phys=phys,
         task_goal=torch.as_tensor(spec.task_goal, device=self.device).long(),
         task_object=torch.as_tensor(spec.task_object,
                                     device=self.device).long(),
-        rgba=self._recolor(batch, generator))
+        rgba=rgba if rows is None else rgba[rows])
 
   # ------------------------------------------------------------- step
 
@@ -604,10 +619,12 @@ class GeecoEnv:
 
   def render(self, es: EnvState, textures=None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """RGB uint8 [B, H, W, 3] and depth f32 [B, H, W] from
-    external_camera_1, row 0 = top.  ``textures`` ([S, R, R, 3], or one
-    stack per env [B, S, R, R, 3]) overrides the textured background
-    surfaces (table top, floor, walls) for this render."""
+    """RGB uint8 [B, H, W, 3] and depth f32 [B, H, W] from the renderer's
+    camera (external_camera_1 by default), row 0 = top; the depth is
+    metric, or OpenGL-style in [0, 1] when the renderer was built with
+    ``depth_gl``.  ``textures`` ([S, R, R, 3], or one stack per env
+    [B, S, R, R, 3]) overrides the textured background surfaces (table
+    top, floor, walls) for this render."""
     return self.renderer.render(self.kin(es), es.rgba, textures)
 
   def render_from_qpos(self, qpos: torch.Tensor, mocap_qpos: torch.Tensor,
@@ -617,11 +634,11 @@ class GeecoEnv:
 
     qpos [n, nq], mocap_qpos [n, 7] (mocap position, then quaternion), rgba
     [n, ngeom, 4] -> (rgb uint8 [n, H, W, 3], depth f32 [n, H, W]), one
-    render of all n; ``textures`` as in ``render``.  State-only datasets
-    store the full qpos + mocap pose per step and the episode's recolour
-    table instead of frames; FK reads nothing else, so training
-    re-synthesizes the exact pixels on the device.  The other fields come
-    from the settled initial state.
+    render of all n; ``textures`` and the depth as in ``render``.
+    State-only datasets store the full qpos + mocap pose per step and the
+    episode's recolour table instead of frames; FK reads nothing else, so
+    training re-synthesizes the exact pixels on the device.  The other
+    fields come from the settled initial state.
     """
     n = qpos.shape[0]
     mocap = mocap_qpos.to(self.device, torch.float32)

@@ -11,8 +11,9 @@ The policy state mirrors the predictor (src/models/e2evmc/predictor.py:
 carry persisted across steps, argmax -> {-1, 0, 1} gripper command.
 
 ``step_textures`` put a background frame a step on the camera-facing
-wall.  Not ported yet: sharding the env batch over devices (``mesh``)
-raises.
+wall.  ``evaluate_batched(mesh=...)`` runs this rank's shard of the batch
+(one process per device, ``parallel/mesh.py``) and gathers the metrics in
+global env order.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from ..envs.base import EnvState, GeecoEnv
+from ..parallel import mesh as PM
 from .e2evmc import E2EVMC, init_lstm_carry
 from .params import E2EVMCConfig
 
@@ -157,13 +159,18 @@ def evaluate_batched(env: GeecoEnv, config: E2EVMCConfig, model: E2EVMC,
   of each step.  collect_frames=V > 0 additionally copies the first V
   envs' frames to the host every step and returns (metrics, frames
   [n_steps, V, H, W, 3] uint8), for eval videos.
+
+  ``mesh`` (``parallel.mesh.Mesh``): this rank runs its rows of the
+  ``batch`` envs (``reset_random(..., rows=)``; ``es0`` and ``tgt_frames``,
+  when given, are already this rank's shard, as ``shard_env_batch`` cuts
+  them) and every rank returns the metrics, and frames, of all ``batch``
+  envs in global order.
   """
-  if mesh is not None:
-    raise NotImplementedError('sharding the env batch over devices is not '
-                              'ported yet')
   env.setup()
   step_fn = make_closed_loop(env, config, goal_conditioned, carry_mode)
-  es = es0 if es0 is not None else env.reset_random(batch, generator)
+  rows = None if mesh is None else mesh.rows(batch)
+  es = es0 if es0 is not None else env.reset_random(batch, generator,
+                                                    rows=rows)
   B = es.task_goal.shape[0]
   dev = env.device
   if tgt_frames is None:
@@ -172,6 +179,9 @@ def evaluate_batched(env: GeecoEnv, config: E2EVMCConfig, model: E2EVMC,
     else:
       tgt_frames = torch.zeros((B, config.img_height, config.img_width,
                                 config.img_channels), device=dev)
+  # the first collect_frames envs of the whole batch that are this rank's
+  first = 0 if rows is None else rows.start
+  n_frames = max(0, min(collect_frames - first, B))
   ps = init_policy_state(config, B, dev)
   z, full = torch.zeros(B, device=dev), lambda v: torch.full((B,), v,
                                                              device=dev)
@@ -187,7 +197,7 @@ def evaluate_batched(env: GeecoEnv, config: E2EVMCConfig, model: E2EVMC,
     tex = step_textures[t] if step_textures is not None else None
     es, ps, m, rgb = step_fn(model, es, ps, tgt_frames, tex)
     if frames is not None:
-      frames.append(rgb[:collect_frames].cpu().numpy())
+      frames.append(rgb[:n_frames].cpu().numpy())
     agg['obj_vicinity'] = torch.maximum(agg['obj_vicinity'],
                                         m['obj_vicinity'])
     agg['grasp_success'] = torch.maximum(agg['grasp_success'],
@@ -206,5 +216,11 @@ def evaluate_batched(env: GeecoEnv, config: E2EVMCConfig, model: E2EVMC,
                                         agg['drop_goal_dist'])
     agg['last_grasp'] = m['grasp_success']
   if frames is not None:
-    return agg, np.stack(frames)
+    frames = np.stack(frames)                   # [n_steps, n_frames, ...]
+  if mesh is not None:
+    agg = {k: PM.all_gather_rows(v, mesh) for k, v in agg.items()}
+    if frames is not None:
+      frames = np.concatenate(PM.all_gather_objects(frames, mesh), axis=1)
+  if frames is not None:
+    return agg, frames
   return agg

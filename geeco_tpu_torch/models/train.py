@@ -19,7 +19,15 @@ Where the JAX package threads parameters through pure functions, a
 updates them in place and returns the state with its carry and step count
 advanced.  Batches are dicts of tensors on the model's device.
 
-Not ported yet: the data-parallel sharding helpers.
+Data parallelism (``mesh=``, one process per device, ``parallel/mesh.py``):
+the parameters are replicated (``shard_train_state``), each rank takes its
+part of the batch (``shard_batch``: the JAX package's rules), and the
+gradients are all-reduced to their mean over the ranks before clipping and
+Adam, so every rank takes the step the global batch gives: every loss is a
+mean over the batch axis with equal parts per rank.  Statistics over the
+whole batch are taken over it: the window-mode reset flag, the
+``cmd_mag`` weights' normalisation and the collapse canary; the metrics
+are averaged over the ranks.
 """
 
 from __future__ import annotations
@@ -29,9 +37,11 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel import mesh as PM
 from ..utils.device import resolve_device
 from .e2evmc import conv_precision, init_lstm_carry, make_model
 from .params import E2EVMCConfig
@@ -127,17 +137,47 @@ def _l2(model: nn.Module) -> torch.Tensor:
   return sum(p.square().sum() for p in model.parameters())
 
 
-def _apply_update(ts: TrainState, loss: torch.Tensor, config: E2EVMCConfig
-                  ) -> torch.Tensor:
-  """Backward, clip, Adam step; returns the loss with the L2 term."""
+def _apply_update(ts: TrainState, loss: torch.Tensor, config: E2EVMCConfig,
+                  mesh: Optional[PM.Mesh] = None) -> torch.Tensor:
+  """Backward, (all-reduce), clip, Adam step; returns the loss with the L2
+  term."""
   if config.l2_regularizer > 0:
     loss = loss + config.l2_regularizer * _l2(ts.model)
   ts.optimizer.zero_grad(set_to_none=True)
   with conv_precision(ts.model.enc_obs.dtype):
     loss.backward()
+  if mesh is not None and mesh.size > 1:
+    _all_reduce_mean_grads(ts.model, mesh)
   _clip_by_global_norm(ts.model)
   ts.optimizer.step()
   return loss
+
+
+def _all_reduce_mean_grads(model: nn.Module, mesh: PM.Mesh):
+  """Every gradient replaced by its mean over the ranks, in one flat
+  all-reduce."""
+  grads = [p.grad for p in model.parameters() if p.grad is not None]
+  flat = torch.cat([g.reshape(-1) for g in grads])
+  dist.all_reduce(flat)
+  flat /= mesh.size
+  at = 0
+  for g in grads:
+    g.copy_(flat[at:at + g.numel()].view_as(g))
+    at += g.numel()
+
+
+def _mean_over_ranks(metrics: Dict[str, torch.Tensor],
+                     mesh: Optional[PM.Mesh]) -> Dict[str, torch.Tensor]:
+  """Scalar metrics averaged over the ranks (each a mean over an equal
+  part of the batch); the canary is already taken over the whole batch."""
+  if mesh is None or mesh.size == 1:
+    return metrics
+  keys = [k for k in metrics if k != 'canary_std']
+  vals = torch.stack([metrics[k].detach().float().reshape(()) for k in keys])
+  dist.all_reduce(vals)
+  out = dict(metrics)
+  out.update(zip(keys, vals / mesh.size))
+  return out
 
 
 def _init_fn(config: E2EVMCConfig, goal_conditioned: bool, device):
@@ -155,9 +195,10 @@ def _init_fn(config: E2EVMCConfig, goal_conditioned: bool, device):
 
 
 def make_train_fns(config: E2EVMCConfig, goal_conditioned: bool,
-                   device=None):
+                   device=None, mesh: Optional[PM.Mesh] = None):
   """Returns (init_fn, train_step, eval_step, apply) on ``device`` (default:
-  the card)."""
+  the card); with ``mesh``, the steps of one rank of a data-parallel run
+  (its shard of the batch and of the carry)."""
   device = resolve_device(device)
 
   def apply(model, feature, carry, reset):
@@ -206,18 +247,22 @@ def make_train_fns(config: E2EVMCConfig, goal_conditioned: bool,
 
   def _reset_flag(step):
     # the window contains the episode start (estimator.py:41-42 uses
-    # prod(step)==0; any(step==0) is the same predicate without overflow)
-    return (step == 0).any()
+    # prod(step)==0; any(step==0) is the same predicate without overflow),
+    # anywhere in the global batch
+    flag = (step == 0).any()
+    if mesh is None or mesh.size == 1:
+      return flag
+    return torch.tensor(PM.any_rank(bool(flag), mesh), device=step.device)
 
   def train_step(ts: TrainState, feature: Dict, label: Dict
                  ) -> Tuple[TrainState, Dict]:
     reset = _reset_flag(feature['step'])
     ep, carry = apply(ts.model, feature, ts.lstm_carry, reset)
     loss, parts = loss_of(ep, targets_of(feature, label))
-    loss = _apply_update(ts, loss, config)
+    loss = _apply_update(ts, loss, config, mesh)
     metrics = {k: v.detach() for k, v in dict(parts, loss=loss).items()}
     return ts.replace(lstm_carry=tuple(c.detach() for c in carry),
-                      step=ts.step + 1), metrics
+                      step=ts.step + 1), _mean_over_ranks(metrics, mesh)
 
   @torch.no_grad()
   def eval_step(ts: TrainState, feature: Dict, label: Dict) -> Dict:
@@ -233,7 +278,7 @@ def make_train_fns(config: E2EVMCConfig, goal_conditioned: bool,
     if config.control_mode == 'cartesian':
       pred = ep['logits_cmd_grp'].argmax(-1)
       metrics['acc_cmd_grp'] = (pred == tgt['cmd_grp']).float().mean()
-    return metrics
+    return _mean_over_ranks(metrics, mesh)
 
   return (_init_fn(config, goal_conditioned, device), train_step, eval_step,
           apply)
@@ -271,7 +316,7 @@ def make_episode_train_fns(config: E2EVMCConfig, goal_conditioned: bool,
                            chunk_windows: int = 8,
                            render_fn: Optional[Callable] = None,
                            aug_pad: int = 0, render_chunk: int = 100,
-                           device=None):
+                           device=None, mesh: Optional[PM.Mesh] = None):
   """Train/eval steps over whole-episode batches (see the JAX package's
   ``make_episode_train_fns`` for why a batch is B whole episodes).
 
@@ -295,6 +340,9 @@ def make_episode_train_fns(config: E2EVMCConfig, goal_conditioned: bool,
   optionally aug_shift [B, 2] instead of the frames; ``render_fn`` (e.g.
   ``env.render_from_qpos``, batched: [n, ...] -> (rgb [n, H, W, 3], depth))
   re-renders them, ``render_chunk`` frames a call.
+
+  With ``mesh``, the steps of one rank of a data-parallel run: its shard of
+  the episodes (``shard_batch``), ``widx``/``valid`` whole.
 
   Returns (init_fn, train_step, eval_step, make_optimizer).
   """
@@ -433,9 +481,13 @@ def make_episode_train_fns(config: E2EVMCConfig, goal_conditioned: bool,
 
     def wmean(a, m):
       # masked PER-ELEMENT mean: the mask broadcast to a's shape is counted
-      # (counting only the masked rows would inflate the mean by B)
+      # (counting only the masked rows would inflate the mean by B), over
+      # the global batch
       a_b, m_b = torch.broadcast_tensors(a, m)
-      return (a_b * m_b).sum() / m_b.sum().clamp(min=1.0)
+      sums = torch.stack([(a_b * m_b).sum(), m_b.sum()])
+      if mesh is not None and mesh.size > 1:
+        dist.all_reduce(sums)       # labels only: no gradient flows here
+      return sums[0] / sums[1].clamp(min=1.0)
 
     m = mask.float()[:, None]
     if config.loss_weighting == 'cmd_mag':
@@ -492,7 +544,11 @@ def make_episode_train_fns(config: E2EVMCConfig, goal_conditioned: bool,
       loss = sum(v for k, v in parts.items() if k.startswith('loss_'))
     # collapse canary: a healthy policy's commands vary across windows;
     # batch-std ~0 on every head = dead constant predictor
-    parts['canary_std'] = ep['pred_cmd_ee'].std(correction=0)
+    pred = ep['pred_cmd_ee']
+    if mesh is not None and mesh.size > 1:    # [N, B, 3]: gather along B
+      pred = PM.all_gather_rows(pred.detach().transpose(0, 1).contiguous(),
+                                mesh).transpose(0, 1)
+    parts['canary_std'] = pred.std(correction=0)
     # start-basin diagnostics: cmd_ee quality on the first
     # start_boost_windows windows (padded starts + early near-static)
     cmd_ee = (pad(lbl('cmd'))[..., :3] if config.control_mode == 'cartesian'
@@ -515,16 +571,61 @@ def make_episode_train_fns(config: E2EVMCConfig, goal_conditioned: bool,
   def train_step(ts: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
     batch = _materialize_frames(batch)
     loss, parts = _forward_loss(ts.model, batch)
-    loss = _apply_update(ts, loss, config)
+    loss = _apply_update(ts, loss, config, mesh)
     metrics = {k: v.detach() for k, v in dict(parts, loss=loss).items()}
-    return ts.replace(step=ts.step + 1), metrics
+    return ts.replace(step=ts.step + 1), _mean_over_ranks(metrics, mesh)
 
   @torch.no_grad()
   def eval_step(ts: TrainState, batch: Dict) -> Dict:
     loss, parts = _forward_loss(ts.model, _materialize_frames(batch))
     if config.l2_regularizer > 0:
       loss = loss + config.l2_regularizer * _l2(ts.model)
-    return dict(parts, loss=loss)
+    return _mean_over_ranks(dict(parts, loss=loss), mesh)
 
   return (_init_fn(config, goal_conditioned, device), train_step, eval_step,
           lambda model: _optimizer(model, config.lr))
+
+
+# ---------------------------------------------------------------- sharding
+
+
+def shard_train_state(ts: TrainState, mesh: PM.Mesh) -> TrainState:
+  """Parameters replicated (rank 0's broadcast to every rank, so that all
+  ranks start equal), the LSTM carry, which is batch-indexed, cut to the
+  rank's rows."""
+  if mesh.size > 1:
+    with torch.no_grad():
+      for t in list(ts.model.parameters()) + list(ts.model.buffers()):
+        dist.broadcast(t, src=0)
+  return ts.replace(lstm_carry=PM.shard_env_batch(ts.lstm_carry, mesh))
+
+
+# Features that are shared across the batch rather than batch-indexed:
+# 'rgb_frames' is the deduplicated frame slab ([F, H, W, 3], F = B+K-1),
+# 'target_rgb'/'target_depth' may be a single shared goal frame ([1, ...]),
+# 'widx'/'valid' are the shared window-index matrix of the episode-scan
+# batch layout (make_episode_train_fns).
+_REPLICATED_FEATURES = frozenset({'rgb_frames', 'widx', 'valid'})
+
+
+def shard_batch(batch: Dict, mesh: PM.Mesh) -> Dict:
+  """The rank's part of a batch dict (numpy arrays or tensors, as given):
+  shared features and scalars whole, every other leaf its rows.  (The JAX
+  package's ``shard_batch`` also places the parts on the devices; here the
+  caller moves them, as ``run/train_e2evmc.to_device`` does.)"""
+  out = {}
+  for key, x in batch.items():
+    if isinstance(x, dict):
+      out[key] = shard_batch(x, mesh)
+      continue
+    shared = (key in _REPLICATED_FEATURES or
+              (key in ('target_rgb', 'target_depth') and x.shape[0] == 1))
+    if shared or x.ndim == 0:
+      out[key] = x
+      continue
+    if x.shape[0] % mesh.size != 0:
+      raise ValueError(
+          f'batch leaf {key!r} has leading dim {x.shape[0]} not divisible '
+          f'by the {mesh.size}-device data axis')
+    out[key] = x[mesh.rows(x.shape[0])]
+  return out

@@ -9,8 +9,11 @@ where (a_b, α_b) = d/dt (J_b v) at constant v come from one
 
 Joint damping is implicit in the integrator: the velocity update solves
 (M + h·diag(damping)), which the reference's 1e11 world-slide damping needs
-at h = 2 ms.  The JAX package's ``mass_inverse='blockgj'`` path (a TPU
-While-loop workaround) is not carried over: only the Cholesky path is.
+at h = 2 ms.  ``mass_inverse`` picks how, as in the JAX package: 'chol'
+factorizes it (``torch.linalg.cholesky``; the solver then applies the
+inverse with ``torch.cholesky_solve``), 'blockgj' forms the explicit
+inverse by block-diagonal Gauss-Jordan elimination (``physics/linalg.py``),
+which the solver applies as a matrix product.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 from ..core import math as gm
 from ..core.model import Kin, Model, State
 from . import kinematics as K
+from . import linalg as L
 
 
 class Smooth(NamedTuple):
@@ -31,9 +35,11 @@ class Smooth(NamedTuple):
   info: K.DofInfo
   M: torch.Tensor            # [B, nv, nv] mass matrix (incl. armature)
   M_impl: torch.Tensor       # [B, nv, nv] M + h*diag(damping)
-  chol: torch.Tensor         # [B, nv, nv] LOWER Cholesky factor of M_impl
+  chol: torch.Tensor | None  # [B, nv, nv] LOWER Cholesky factor of M_impl
+  #                            ('chol')
   qfrc_smooth: torch.Tensor  # [B, nv] applied + bias-compensated force
   qacc_smooth: torch.Tensor  # [B, nv] unconstrained acceleration
+  minv: torch.Tensor | None = None  # [B, nv, nv] M_impl^-1 ('blockgj')
 
 
 def inertia_world(model: Model, kin: Kin) -> torch.Tensor:
@@ -138,7 +144,12 @@ def fluid_force(model: Model, state: State, kin: Kin, jacp: torch.Tensor,
 
 
 def smooth_dynamics(model: Model, state: State, anc_mask: np.ndarray,
-                    dt) -> Smooth:
+                    dt, mass_inverse: str = 'chol') -> Smooth:
+  """``mass_inverse``: 'chol' (the Cholesky factor, solved lazily) or
+  'blockgj' (the explicit inverse, ``linalg.spd_block_inverse``): the same
+  math, set ``chol`` or ``minv``."""
+  if mass_inverse not in ('chol', 'blockgj'):
+    raise ValueError(f'unknown mass_inverse {mass_inverse!r}')
   kin, info, jacp, jacr, qfrc_bias = kin_and_bias(model, state, anc_mask)
   M = mass_matrix(model, kin, jacp, jacr)
   qfrc = (actuator_force(model, state) + passive_force(model, state) +
@@ -147,6 +158,11 @@ def smooth_dynamics(model: Model, state: State, anc_mask: np.ndarray,
   # implicit damping consumes existing momentum too:
   #   (M + h D) v' = M v + h (qfrc - D·0)  =>  acc = Minv_impl (qfrc - D v)
   qfrc_total = qfrc - model.dof_damping * state.qvel
+  if mass_inverse == 'blockgj':
+    minv = L.spd_block_inverse(M_impl, L.dof_blocks(anc_mask))
+    qacc = torch.einsum('zij,zj->zi', minv, qfrc_total)
+    return Smooth(kin=kin, info=info, M=M, M_impl=M_impl, chol=None,
+                  qfrc_smooth=qfrc_total, qacc_smooth=qacc, minv=minv)
   chol = torch.linalg.cholesky(M_impl)
   qacc = torch.cholesky_solve(qfrc_total[..., None], chol)[..., 0]
   return Smooth(kin=kin, info=info, M=M, M_impl=M_impl, chol=chol,

@@ -640,7 +640,13 @@ def solve(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
   on the card, its plain twin on the CPU), with the TPU kernel's operator
   form; it needs ngrp=4, and at ngrp=6 (rolling rows) it runs the
   ``'psd'`` iteration, as in the JAX package.  The block methods need quota
-  selection.  Returns (f_full [B, ne], qacc [B, nv]).
+  selection.  M⁻¹ is applied as ``smooth`` carries it: the Cholesky factor
+  (``torch.cholesky_solve``), or under ``mass_inverse='blockgj'`` the
+  explicit inverse.  The weld Schur block is inverted by
+  ``torch.linalg.inv`` under both (the JAX package unrolls a Gauss-Jordan
+  inverse there, to avoid While loops on the TPU; taking that under
+  'chol' moves a noisy expert rollout 1.03e-4 from JAX's, past the env
+  tests' 1e-4).  Returns (f_full [B, ne], qacc [B, nv]).
   """
   if method not in METHODS:
     raise ValueError(f'unknown solver method {method!r}')
@@ -659,7 +665,10 @@ def solve(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
   it_method = 'psd' if method == 'pallas' else method
 
   JT = con.J.transpose(1, 2)                                   # [B, nv, ne]
-  X = torch.cholesky_solve(JT, smooth.chol)                    # M⁻¹ Jᵀ
+  if smooth.minv is not None:      # 'blockgj': the explicit inverse
+    X = torch.bmm(smooth.minv, JT)                             # M⁻¹ Jᵀ
+  else:
+    X = torch.cholesky_solve(JT, smooth.chol)
   diagA = torch.einsum('zev,zve->ze', con.J, X)
   R = (1.0 - con.d_imp) / con.d_imp * con.invweight
   b = torch.einsum('zev,zv->ze', con.J, smooth.qacc_smooth) - con.aref
@@ -720,9 +729,7 @@ def solve(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
     R_I, R_E = R[:, :nI], R[:, eq_lo:eq_hi]
     b_I, b_E = b[:, :nI], b[:, eq_lo:eq_hi]
     A_EE = torch.bmm(J_E, X_E) + torch.diag_embed(R_E)         # [B, nE, nE]
-    # the small SPD Schur block; the JAX package unrolls a Gauss-Jordan
-    # inverse here to avoid While loops on the TPU
-    A_EE_inv = torch.linalg.inv(A_EE)
+    A_EE_inv = torch.linalg.inv(A_EE)            # the small SPD Schur block
     A_IE = torch.bmm(J_I, X_E)                                 # [B, nI, nE]
     Z = torch.bmm(A_EE_inv, A_IE.transpose(1, 2))              # [B, nE, nI]
     diag_red = diagA[:, :nI] + R_I - torch.einsum('zie,zei->zi', A_IE, Z)

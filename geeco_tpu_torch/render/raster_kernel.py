@@ -2,8 +2,8 @@
 
 Replaces the JAX package's Pallas TPU kernel
 ``geeco_tpu/render/rasterizer.py::_raster_pallas_call`` (kernel body
-``:809-834``).  It computes the same thing: for each 16x16 fine tile, a
-z-buffer over the tile's K binned triangle slots in inverse-depth space.  A
+``:809-834``).  It computes the same thing: for each fine tile (any side),
+a z-buffer over the tile's K binned triangle slots in inverse-depth space.  A
 pixel (centre px, py) is inside slot k when all three affine edge functions
 ``A*px + B*py + C`` are >= 0; the slot wins the pixel when its interpolated
 inverse depth is larger than the buffer's.  Colour is the packed
@@ -33,9 +33,12 @@ none; empty slots, C0 = -1e30, go the same way), compacts the survivors in
 slot order into shared memory, slot-major, and rasterizes them with a 4x2
 patch of pixels per lane that shares the coefficient loads (four float4 per
 slot) and the rounded products ``a*px`` and ``b*py``.  What is left is bound
-by reading the coefficients once.  The kernel takes any K >= 0 and tiles
-of 4, 8, 12 or 16 pixels a side (``kernel_limits``); it uses 8 KB of static
-shared memory per block whatever K is.
+by reading the coefficients once.  The kernel takes any K >= 0 and any
+tile side (``kernel_limits``): sides of 4, 8, 12 and 16 take the patch
+path above; every other side (10, 20, 32, ...) takes a general path with the
+same staging and cull, eight pixels strided by 32 per lane, the tile swept
+in passes of 256 pixels.  Both use 8 KB of static shared memory per block
+whatever K is.
 
 Numerics: the kernel evaluates each affine form as ``(a*px + b*py) + c``
 with rounded multiplies and adds and no FMA contraction (explicit
@@ -51,8 +54,8 @@ import ctypes
 import torch
 
 N_COEFF = 13
-_PATCH = (4, 2)           # pixels per lane, columns x rows
-_MAX_TILE = 16            # 32 lanes x 8 pixels
+_PATCH = (4, 2)           # pixels per lane of the patch path, columns x rows
+_MAX_PATCH_TILE = 16      # 32 lanes x 8 pixels
 
 
 def _pixel_centres(tile: int, like: torch.Tensor):
@@ -92,19 +95,20 @@ def _check(coeffs: torch.Tensor, tile: int):
                      f'{tuple(coeffs.shape)}')
   if not coeffs.is_contiguous():
     raise ValueError('coeffs must be contiguous')
+  kernel_limits(tile)
+
+
+def kernel_limits(tile: int) -> str:
+  """The CUDA kernel's path for a tile side: 'patch' (one 4x2-pixel patch
+  per lane of a warp: sides 4, 8, 12 and 16) or 'general' (every other side
+  of at least one pixel); raises on a side under one pixel.  (Any slot
+  count K is taken: slots are read 32 at a time.)"""
   if tile < 1:
-    raise ValueError(f'tile={tile}')
-
-
-def kernel_limits(tile: int):
-  """Raise on a tile size the CUDA kernel does not take: one warp rasterizes
-  a tile in 4x2-pixel patches, one per lane, so the side is a multiple of 4
-  and at most 16.  (Any slot count K is taken: slots are read 32 at a time.)
-  """
-  if tile % _PATCH[0] or not _PATCH[0] <= tile <= _MAX_TILE:
-    raise ValueError(f'raster_tiles: tile={tile}: the kernel takes sides of '
-                     f'4, 8, 12 or 16 pixels (one {_PATCH[0]}x{_PATCH[1]} '
-                     'patch per lane of a warp)')
+    raise ValueError(f'raster_tiles: tile={tile}: a tile side is at least '
+                     'one pixel')
+  if tile % _PATCH[0] == 0 and tile <= _MAX_PATCH_TILE:
+    return 'patch'
+  return 'general'
 
 
 def raster_tiles(coeffs: torch.Tensor, tile: int, sky_packed: float):
@@ -118,7 +122,6 @@ def raster_tiles(coeffs: torch.Tensor, tile: int, sky_packed: float):
     return raster_tiles_reference(coeffs, tile, sky_packed)
   if coeffs.device.type != 'cuda':
     raise ValueError(f'raster_tiles: no kernel for device {coeffs.device}')
-  kernel_limits(tile)
   from ..utils import build
   lib = build.load_kernels()
   B, n_tiles, _, K = coeffs.shape

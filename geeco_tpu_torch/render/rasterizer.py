@@ -1,36 +1,46 @@
 """Tiled batched triangle rasterizer producing RGB(-D) observations.
 
-Counterpart of ``geeco_tpu/render/rasterizer.py``.  Pipeline, for B envs at
-once:
+Counterpart of ``geeco_tpu/render/rasterizer.py``, with every option of its
+``build_renderer``.  Pipeline, for B envs at once:
   1. transform the compiled triangle soup by the geom world poses (Kin)
   2. project to screen space (MuJoCo camera: looks along -z, y up,
      vertical fov = cam_fovy) and flat-shade each triangle, with
      occlusion-tested shadows on static receivers
-  3. hierarchical binning: coarse 64x64-px regions keep their top-K1
-     triangles by priority, then 32x32-px mid regions keep the first K2
-     coarse candidates that overlap them; each 16x16 fine tile reads its
-     mid region's list
-  4. per fine tile: z-buffered rasterization over its K2 slots in
-     inverse-depth space — the hand-written CUDA kernel
-     (``raster_kernel.raster_tiles``) on the card, its plain PyTorch twin on
-     the CPU
-  5. compose the tiles into the image; sky where no triangle was hit
+  3. binning, one of two ways:
+     * hierarchical: coarse regions of 4x4 fine tiles keep their top-K1
+       triangles by priority, then mid regions of 2x2 tiles keep the first
+       K2 coarse candidates that overlap them; each fine tile reads its mid
+       region's list, and the hand-written CUDA kernel
+       (``raster_kernel.raster_tiles``) z-buffers it in inverse depth on the
+       card, its plain PyTorch twin on the CPU;
+     * flat (the JAX package's ``_bin_flat`` + ``_raster_jnp``): every fine
+       tile keeps its top ``tris_per_tile`` triangles of all T and a
+       chunked z-min scan rasterizes them, in plain PyTorch on every device
+  4. compose the tiles into the image, then composite the analytic
+     background layer: the scene's rects (planes, textured box tops) when
+     ``analytic_rects``, ray-cast per pixel; sky at zfar where nothing is hit
+  5. optionally OpenGL-style nonlinear depth (``depth_gl``)
 
-The port has this one path on every device: the JAX package's flat binning
-(``_bin_flat`` + ``_raster_jnp``) and the analytic background rects are not
-ported yet.
+Which path a render takes is the JAX package's choice: the flat one when
+``backend='jnp'`` or when the tile grid is no multiple of 4 a side, the
+hierarchical one otherwise.  ``backend='auto'`` here means the hierarchical
+path (the kernel on the card, its twin on the CPU), where the JAX package's
+'auto' means Pallas on the TPU and flat binning elsewhere; 'pallas' is a
+synonym of 'auto'.  A scene with no triangles at all is the analytic layer
+alone.  ``Renderer.path_counts`` counts the renders each path took.
 
 Layout: the JAX package keeps [K, n_tiles] planes (tiles in TPU lanes);
 here the binned planes are tile-major, [B, n_tiles, K], so one CUDA block
 reads one tile's slot list from contiguous memory.  Tile order within the
-image is the JAX package's mid-major order (tile = mid * 4 + sub).
+image is the JAX package's mid-major order (tile = mid * 4 + sub) on the
+hierarchical path and row-major on the flat one.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
-from typing import List, NamedTuple, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -53,14 +63,27 @@ class Renderer:
   height: int
   cam_id: int
   tile: int
+  tris_per_tile: int
+  chunk: int
   znear: float
   zfar: float
   sky_rgb: Tuple[float, float, float]
+  depth_gl: bool  # OpenGL-style nonlinear depth output
   cull: int       # backface culling: 0 off, +1/-1 keep that area sign
-  coarse_k: int   # candidate capacity per coarse (64 px) region
-  mid_k: int      # candidate capacity per mid (32 px) region
+  coarse: int     # the JAX package's coarse option: kept, unused as there
+  coarse_k: int   # candidate capacity per coarse (4x4-tile) region
+  mid_k: int      # candidate capacity per mid (2x2-tile) region
+  backend: str    # 'auto' | 'pallas' (hierarchical) | 'jnp' (flat)
   shadows: bool   # occlusion-tested shadows on static receivers
   shadow_caps: Tuple[int, ...]  # capsule occluder geom ids (arm proxies)
+  rect_pixel_texels: bool  # full per-pixel texels on analytic rects
+  #                          (False = cell-quantized, as the tessellated
+  #                          path's texel quads)
+  scene_key: str = ''  # the options the scene was built with: the key of
+  #                      its arrays in the model's tensor cache
+  # renders per path ('hierarchical', 'flat', 'rects'), shared by the
+  # renderers ``replace`` derives from this one
+  path_counts: Dict[str, int] = field(default_factory=dict, compare=False)
 
   def replace(self, **changes) -> 'Renderer':
     return dataclasses.replace(self, **changes)
@@ -72,35 +95,53 @@ class Renderer:
 
     ``textures`` (f32 in [0, 1], [S, R, R, 3] for every env or
     [B, S, R, R, 3] per env) overrides the static texel colours of the
-    scene's textured surfaces (``RenderScene.tri_texslot``): the
-    reference's TextureModder background randomisation.  The texels only
-    colour the triangles, so the raster kernel is the same.
+    scene's textured surfaces (``RenderScene.tri_texslot`` and the textured
+    rects): the reference's TextureModder background randomisation.  The
+    texels only colour the triangles, so the raster kernel is the same.
     """
     return _render(self, kin, geom_rgba, textures)
 
-  def const(self, name: str) -> torch.Tensor:
-    """A RenderScene array as a (cached) tensor on the model's device."""
-    return self.model.const('scene.' + name, getattr(self.scene, name))
+  def const(self, name: str, value=None) -> torch.Tensor:
+    """A RenderScene array (or ``value``, an array derived from the scene)
+    as a cached tensor on the model's device."""
+    return self.model.const(
+        f'scene{self.scene_key}.{name}',
+        getattr(self.scene, name) if value is None else value)
+
+
+BACKENDS = ('auto', 'pallas', 'jnp')
 
 
 def build_renderer(model: Model, assets: Assets, width: int = 256,
-                   height: int = 256, coarse_k: int = 512, mid_k: int = 192,
-                   shadows: bool = True, tex_grid: Optional[int] = None
-                   ) -> Renderer:
+                   height: int = 256, camera: str = 'external_camera_1',
+                   tile: int = 16, tris_per_tile: int = 96, chunk: int = 8,
+                   znear: float = 0.05, zfar: float = 10.0,
+                   mesh_face_budget: int = 400, tex_grid: int = None,
+                   depth_gl: bool = False, cull: int = -1,
+                   coarse: int = 4, coarse_k: int = 512, mid_k: int = 192,
+                   backend: str = 'auto', shadows: bool = True,
+                   rect_pixel_texels: bool = False,
+                   analytic_rects: bool = False) -> Renderer:
   """Compile the scene (numpy, from a model on the CPU) into a Renderer.
 
-  The JAX package's defaults throughout: camera external_camera_1, 16-px
-  fine tiles, znear 0.05, zfar 10, backface culling, tessellated
-  background (its ``analytic_rects=False``).  ``tex_grid``: the texel grid
-  of textured surfaces (None: the scene's default; 0: flat colours).
+  The JAX package's options and defaults.  ``camera``: any named camera of
+  the model (``gripper_camera_rgb`` rides on the gripper).  ``tile``: the
+  fine tile's side in pixels (the frame must hold whole tiles; the coarse
+  and mid regions are 4 and 2 tiles a side).  ``tris_per_tile`` and
+  ``chunk``: the flat path's slots per tile and slots per z-min step.
+  ``mesh_face_budget`` and ``tex_grid`` (None: the scene's default; 0: flat
+  colours) shape the scene; ``analytic_rects`` ray-casts its planes and box
+  tops per pixel instead of tessellating them, with per-pixel texels when
+  ``rect_pixel_texels``.  ``backend``: see the module docstring.
   """
-  tile = 16
-  if height % (tile * _COARSE) or width % (tile * _COARSE):
-    raise ValueError(f'{width}x{height} is not a multiple of the '
-                     f'{tile * _COARSE}-px coarse region')
+  if backend not in BACKENDS:
+    raise ValueError(f'backend {backend!r} is not one of {BACKENDS}')
+  if tile < 1 or height % tile or width % tile:
+    raise ValueError(f'{width}x{height} does not hold whole {tile}-px '
+                     'tiles')
   scene_kwargs = {} if tex_grid is None else {'tex_grid': tex_grid}
-  scene = build_render_scene(model, assets, analytic_rects=False,
-                             **scene_kwargs)
+  scene = build_render_scene(model, assets, mesh_face_budget=mesh_face_budget,
+                             analytic_rects=analytic_rects, **scene_kwargs)
   # sky colour: mean of the builtin gradient skybox texture
   sky = (0.45, 0.86, 0.57)
   # arm-link capsule occluders: the invisible collision proxies double as
@@ -109,11 +150,15 @@ def build_renderer(model: Model, assets: Assets, width: int = 256,
   caps = tuple(int(g) for g in range(model.ngeom)
                if model.geom_type[g] == CAPSULE and rgba[g, 3] < 0.01)
   return Renderer(model=model, scene=scene, width=width, height=height,
-                  cam_id=model.cam('external_camera_1'), tile=tile,
-                  znear=0.05, zfar=10.0, sky_rgb=sky, cull=-1,
-                  coarse_k=min(coarse_k, scene.tri.shape[0]),
-                  mid_k=min(mid_k, coarse_k), shadows=shadows,
-                  shadow_caps=caps)
+                  cam_id=model.cam(camera), tile=tile,
+                  tris_per_tile=tris_per_tile, chunk=chunk, znear=znear,
+                  zfar=zfar, sky_rgb=sky, depth_gl=depth_gl, cull=cull,
+                  coarse=coarse, coarse_k=min(coarse_k, scene.tri.shape[0]),
+                  mid_k=min(mid_k, coarse_k), backend=backend,
+                  shadows=shadows, shadow_caps=caps,
+                  rect_pixel_texels=rect_pixel_texels,
+                  scene_key=(f'[{mesh_face_budget},{tex_grid},'
+                             f'{analytic_rects}]'))
 
 
 # ---------------------------------------------------------------------------
@@ -285,7 +330,7 @@ def _occlude_points(r: Renderer, kin: Kin, world: torch.Tensor,
     pad = (-ct.size) % CC
     # pad with copies of the first caster: occlusion is an OR
     ct = np.concatenate([ct, np.full(pad, ct[0], ct.dtype)])
-    tri_c = r.model.const('scene.shadow_cast_tri', np.asarray(scene.tri)[ct])
+    tri_c = r.const('shadow_cast_tri', np.asarray(scene.tri)[ct])
     for c0 in range(0, ct.size, CC):
       abc = tri_c[c0:c0 + CC]
       A, Bv, Cv = world[:, abc[:, 0]], world[:, abc[:, 1]], world[:, abc[:, 2]]
@@ -333,6 +378,142 @@ def _shadow_occlusion(r: Renderer, kin: Kin, world: torch.Tensor
   return out
 
 
+def _analytic_bg(r: Renderer, kin: Kin, rgba: torch.Tensor, textures, cam,
+                 world: torch.Tensor):
+  """Per-pixel ray cast of the scene's analytic rects (planes, textured box
+  tops): (depth [B, H, W] f32, colp [B, H, W] packed f32), the JAX
+  package's ``_analytic_bg``.  Where no rect is hit: depth zfar, sky.
+
+  Each rect's texels, light query and grid shadows are as in the JAX
+  package: cell-quantized to its G x G texel cells (or per pixel with
+  ``rect_pixel_texels``); light visibility tested on its (G+1)^2 grid
+  points and read back 4-corner averaged per cell (bilinear per pixel
+  with ``rect_pixel_texels``).
+  """
+  model, scene = r.model, r.scene
+  H, W = r.height, r.width
+  cam_pos, Rc = cam                                     # [B, 3], [B, 3, 3]
+  B, dev = cam_pos.shape[0], cam_pos.device
+  nrect = int(scene.rect_geom.shape[0])
+  best_colp = torch.full((B, H, W), _pack_sky(r.sky_rgb), device=dev)
+  best_depth = torch.full((B, H, W), r.zfar, device=dev)
+  if nrect == 0:
+    return best_depth, best_colp
+
+  # unnormalized camera-frame pixel rays (a, b, -1): z-depth along the ray
+  # equals the ray parameter s (the exact inverse of the projection)
+  f = 1.0 / torch.tan(torch.deg2rad(model.cam_fovy[r.cam_id]) * 0.5)
+  aspect = W / H
+  a = ((2.0 * (torch.arange(W, device=dev) + 0.5) / W) - 1.0) * aspect / f
+  b = (1.0 - 2.0 * (torch.arange(H, device=dev) + 0.5) / H) / f
+  dirw = (a[None, None, :, None] * Rc[:, None, None, :, 0] +
+          b[None, :, None, None] * Rc[:, None, None, :, 1] -
+          Rc[:, None, None, :, 2])                      # [B, H, W, 3]
+  dot = lambda x, v: (x * v[:, None, None, :]).sum(-1)  # [B,H,W,3]·[B,3]
+
+  tex = None
+  if scene.tex_default.shape[0]:
+    tex = (r.const('tex_default') if textures is None else
+           torch.as_tensor(textures, dtype=torch.float32, device=dev))
+  Rt = scene.tex_res
+  shadows = (r.shadows and model.nlight and
+             (scene.shadow_cast.size or r.shadow_caps))
+  rows = torch.arange(B, device=dev)[:, None, None]
+
+  for k in range(nrect):
+    g = int(scene.rect_geom[k])
+    hx, hy = float(scene.rect_half[k, 0]), float(scene.rect_half[k, 1])
+    Rg = gm.quat_to_mat(kin.geom_xquat[:, g])           # [B, 3, 3]
+    center = kin.geom_xpos[:, g] + (Rg @ r.const('rect_off')[k])
+    U, V, N = Rg[..., 0], Rg[..., 1], Rg[..., 2]        # [B, 3]
+
+    denom = dot(dirw, N)                                # [B, H, W]
+    hit = denom.abs() > 1e-9
+    safe = torch.where(hit, denom, torch.ones_like(denom))
+    s = ((center - cam_pos) * N).sum(-1)[:, None, None] / safe
+    rel = cam_pos - center                              # [B, 3]
+    lu = s * dot(dirw, U) + (rel * U).sum(-1)[:, None, None]
+    lv = s * dot(dirw, V) + (rel * V).sum(-1)[:, None, None]
+    inside = (hit & (s > r.znear) & (lu.abs() <= hx) & (lv.abs() <= hy) &
+              (rgba[:, g, 3] > 0.5)[:, None, None])
+
+    G = int(scene.rect_grid[k])
+    u01 = lu / hx * 0.5 + 0.5
+    v01 = lv / hy * 0.5 + 0.5
+    if r.rect_pixel_texels:
+      uq, vq = u01, v01
+    else:                                               # cell centres
+      uq = (torch.clamp((u01 * G).to(torch.int32), 0, G - 1).to(u01.dtype)
+            + 0.5) / G
+      vq = (torch.clamp((v01 * G).to(torch.int32), 0, G - 1).to(v01.dtype)
+            + 0.5) / G
+
+    slot = int(scene.rect_slot[k])
+    if slot >= 0 and tex is not None:
+      # texel mapping as scene._grid_quad: image row 0 = +y edge
+      iu = torch.clamp((uq * Rt).to(torch.int64), 0, Rt - 1)
+      iv = torch.clamp(((1.0 - vq) * Rt).to(torch.int64), 0, Rt - 1)
+      base = (tex[slot][iv, iu] if tex.dim() == 4 else
+              tex[rows, slot, iv, iu])                  # [B, H, W, 3]
+    else:
+      base = rgba[:, g, :3][:, None, None, :].expand(B, H, W, 3)
+
+    # flat shading, the normal facing the camera (double-sided, as the
+    # triangles)
+    n_o = N * torch.sign((rel * N).sum(-1, keepdim=True) + 1e-12)
+    if model.nlight:
+      if model.light_directional[0]:
+        diff = torch.clamp((n_o * -model.light_dir[0]).sum(-1), min=0.0)
+        diff = diff[:, None, None].expand(B, H, W)
+      else:
+        # light query at the (possibly cell-quantized) surface point
+        q_pix = (center[:, None, None, :] +
+                 ((uq * 2.0 - 1.0) * hx)[..., None] * U[:, None, None, :] +
+                 ((vq * 2.0 - 1.0) * hy)[..., None] * V[:, None, None, :])
+        l = model.light_pos[0] - q_pix
+        l = l / torch.clamp(gm.norm(l, keepdim=True), min=1e-9)
+        diff = torch.clamp(dot(l, n_o), min=0.0)
+    else:
+      diff = torch.clamp(n_o[:, 2], min=0.0)[:, None, None].expand(B, H, W)
+
+    if shadows and bool(scene.rect_recv[k]):
+      # light visibility on the rect's (G+1)^2 grid, read back per pixel
+      sg = G
+      gl = np.linspace(-1.0, 1.0, sg + 1)
+      gu, gv = np.meshgrid(gl * hx, gl * hy, indexing='ij')
+      gu = torch.as_tensor(gu.ravel(), dtype=torch.float32, device=dev)
+      gv = torch.as_tensor(gv.ravel(), dtype=torch.float32, device=dev)
+      pts = (center[:, None, :] + gu[None, :, None] * U[:, None, :] +
+             gv[None, :, None] * V[:, None, :])         # [B, (sg+1)^2, 3]
+      occ = _occlude_points(r, kin, world, pts)         # [B, (sg+1)^2]
+      fu = torch.clamp(u01 * sg, 0.0, sg - 1e-4)
+      fv = torch.clamp(v01 * sg, 0.0, sg - 1e-4)
+      iu0 = fu.to(torch.int64)
+      iv0 = fv.to(torch.int64)
+      at = lambda du, dv: torch.gather(
+          occ, 1, ((iu0 + du) * (sg + 1) + iv0 + dv).reshape(B, -1)
+      ).reshape(B, H, W)
+      o00, o10, o01, o11 = at(0, 0), at(1, 0), at(0, 1), at(1, 1)
+      if r.rect_pixel_texels:
+        wu = fu - iu0
+        wv = fv - iv0
+        occ_pix = ((1 - wu) * (1 - wv) * o00 + wu * (1 - wv) * o10 +
+                   (1 - wu) * wv * o01 + wu * wv * o11)
+      else:
+        occ_pix = 0.25 * (o00 + o10 + o01 + o11)
+      diff = diff * (1.0 - occ_pix)
+
+    shade = torch.clamp(0.45 + 0.6 * diff, 0.0, 1.1)
+    c = torch.clamp(base * shade[..., None] * 255.0, 0.0, 255.0)
+    colp = (torch.floor(c[..., 0]) * 65536.0 + torch.floor(c[..., 1]) * 256.0
+            + torch.floor(c[..., 2]))
+
+    win = inside & (s < best_depth)
+    best_depth = torch.where(win, s, best_depth)
+    best_colp = torch.where(win, colp, best_colp)
+  return best_depth, best_colp
+
+
 def _pack_sky(sky_rgb) -> float:
   s = [int(np.clip(c * 255.0, 0, 255)) for c in sky_rgb]
   return float(s[0] * 65536 + s[1] * 256 + s[2])
@@ -365,6 +546,73 @@ def _bin_priority(tp: TriPlanes, tile: int) -> torch.Tensor:
   lox, loy, hix, hiy = _bbox_planes(tp)
   big = ((hix - lox) >= tile) & ((hiy - loy) >= tile)
   return izmax + 1e4 * big.to(izmax.dtype)
+
+
+def _bin_flat(r: Renderer, tp: TriPlanes):
+  """Single-level binning (the JAX package's ``_bin_flat``): the top
+  ``tris_per_tile`` triangles of all T for every fine tile, row-major.
+  Returns (top_idx int64, slot_ok bool), each [B, n_tiles, K]; ties keep
+  the lower triangle index first, as ``jax.lax.top_k`` does."""
+  H, W, TS = r.height, r.width, r.tile
+  ty, tx = H // TS, W // TS
+  lox, loy, hix, hiy = _bbox_planes(tp)
+  B, T = lox.shape
+  dev = lox.device
+  tiles_x = torch.arange(tx, device=dev) * TS
+  tiles_y = torch.arange(ty, device=dev) * TS
+  ox = (lox[..., None] < tiles_x + TS) & (hix[..., None] >= tiles_x)
+  oy = (loy[..., None] < tiles_y + TS) & (hiy[..., None] >= tiles_y)
+  overlap = oy[..., :, None] & ox[..., None, :] & tp.valid[..., None, None]
+  overlap = overlap.reshape(B, T, ty * tx).transpose(1, 2)   # [B, tiles, T]
+  prio = _bin_priority(tp, TS)[:, None, :]
+  prio = torch.where(overlap, prio, torch.zeros_like(prio))
+  top_prio, top_idx = torch.sort(prio, dim=-1, descending=True, stable=True)
+  K = r.tris_per_tile
+  return top_idx[..., :K], top_prio[..., :K] > 0
+
+
+def _raster_flat(r: Renderer, planes: List[torch.Tensor], npx: int):
+  """Chunked z-buffer scan (the JAX package's ``_raster_jnp``), plain
+  PyTorch on every device.
+
+  planes: 11 tensors [B, tiles, K] (x0..y2 tile-relative, iz0..iz2, ok,
+  colp).  Each step takes ``chunk`` slots: per pixel the nearest covering
+  slot of the chunk (the first on a tie) replaces the buffer's where it is
+  strictly nearer.  As there, K // chunk whole chunks are scanned.
+  Returns (zbuf, colbuf packed f32), each [B, tiles, npx].
+  """
+  x0, y0, x1, y1, x2, y2, iz0, iz1, iz2, ok, colp = planes
+  TS = r.tile
+  B, n_tiles, K = x0.shape
+  C = min(r.chunk, K)
+  dev = x0.device
+  lin = torch.arange(npx, device=dev)
+  px = ((lin % TS).to(x0.dtype) + 0.5)[None, None, None, :]
+  py = ((lin // TS).to(x0.dtype) + 0.5)[None, None, None, :]
+  zbuf = torch.full((B, n_tiles, npx), float('inf'), device=dev)
+  cbuf = torch.full((B, n_tiles, npx), _pack_sky(r.sky_rgb), device=dev)
+  inf = torch.full((), float('inf'), device=dev)
+  one = torch.ones((), device=dev)
+  for c0 in range(0, (K // C) * C, C):
+    sl = lambda p: p[..., c0:c0 + C, None]             # [B, tiles, C, 1]
+    X0, Y0, X1, Y1, X2, Y2 = (sl(p) for p in (x0, y0, x1, y1, x2, y2))
+    IZ0, IZ1, IZ2 = sl(iz0), sl(iz1), sl(iz2)
+    e0 = (X1 - X0) * (py - Y0) - (Y1 - Y0) * (px - X0)   # [B, tiles, C, px]
+    e1 = (X2 - X1) * (py - Y1) - (Y2 - Y1) * (px - X1)
+    e2 = (X0 - X2) * (py - Y2) - (Y0 - Y2) * (px - X2)
+    area = (X1 - X0) * (Y2 - Y0) - (Y1 - Y0) * (X2 - X0)
+    sgn = torch.sign(area)
+    inside = ((e0 * sgn >= 0) & (e1 * sgn >= 0) & (e2 * sgn >= 0) &
+              (sl(ok) > 0.5))
+    inv_area = 1.0 / torch.where(area.abs() > 1e-9, area, one)
+    inv_z = (e1 * IZ0 + e2 * IZ1 + e0 * IZ2) * inv_area
+    z = torch.where(inside, 1.0 / torch.clamp(inv_z, min=1e-6), inf)
+    zc, sel = torch.min(z, dim=2)                      # [B, tiles, px]
+    cc = torch.gather(colp[..., c0:c0 + C], 2, sel)
+    closer = zc < zbuf
+    zbuf = torch.where(closer, zc, zbuf)
+    cbuf = torch.where(closer, cc, cbuf)
+  return zbuf, cbuf
 
 
 def _bin_hierarchical(r: Renderer, tp: TriPlanes) -> List[torch.Tensor]:
@@ -504,28 +752,61 @@ def _render(r: Renderer, kin: Kin, geom_rgba: torch.Tensor | None,
             textures: torch.Tensor | None = None):
   H, W, TS = r.height, r.width, r.tile
   ty, tx = H // TS, W // TS
+  n_tiles, npx = ty * tx, TS * TS
   B = kin.xpos.shape[0]
 
   rgba = r.model.geom_rgba.expand(B, -1, -1) if geom_rgba is None \
       else geom_rgba
   cam = _camera(r, kin)
   world = _vertex_world(r, kin)
-  tp = _project_and_shade(r, kin, rgba, cam=cam, world=world,
-                          textures=textures)
+  inf = torch.full((), float('inf'), device=world.device)
 
-  planes = _bin_hierarchical(r, tp)                     # [B, n_tiles, K2]
-  coeffs = _coeff_planes(planes, TS, _MID)              # [B, n_tiles, 13, K2]
-  izbuf, cbuf = raster_kernel.raster_tiles(coeffs, TS, _pack_sky(r.sky_rgb))
-  inf = torch.full((), float('inf'), device=izbuf.device)
-  depth = _compose_midmajor(
-      torch.where(izbuf > 0.0, 1.0 / torch.clamp(izbuf, min=1e-9), inf),
-      ty, tx, TS, _MID)
-  cimg = _compose_midmajor(cbuf, ty, tx, TS, _MID)
+  if r.scene.tri.shape[0] == 0:
+    # rect-only scene: the analytic layer is the whole image
+    path = 'rects'
+    depth = torch.full((B, H, W), float('inf'), device=world.device)
+    cimg = torch.zeros((B, H, W), device=world.device)
+  else:
+    tp = _project_and_shade(r, kin, rgba, cam=cam, world=world,
+                            textures=textures)
+    if r.backend != 'jnp' and ty % _COARSE == 0 and tx % _COARSE == 0:
+      path = 'hierarchical'
+      planes = _bin_hierarchical(r, tp)                 # [B, n_tiles, K2]
+      coeffs = _coeff_planes(planes, TS, _MID)          # [B, n_tiles, 13, K2]
+      izbuf, cbuf = raster_kernel.raster_tiles(coeffs, TS,
+                                               _pack_sky(r.sky_rgb))
+      depth = _compose_midmajor(
+          torch.where(izbuf > 0.0, 1.0 / torch.clamp(izbuf, min=1e-9), inf),
+          ty, tx, TS, _MID)
+      cimg = _compose_midmajor(cbuf, ty, tx, TS, _MID)
+    else:
+      path = 'flat'
+      top_idx, slot_ok = _bin_flat(r, tp)               # [B, n_tiles, K]
+      tile_id = torch.arange(n_tiles, device=world.device)
+      orx = ((tile_id % tx) * TS).to(world.dtype)[:, None]
+      ory = ((tile_id // tx) * TS).to(world.dtype)[:, None]
+      flat_idx = top_idx.reshape(B, -1)
+      take = lambda p: torch.gather(p, 1, flat_idx).reshape(top_idx.shape)
+      planes = [take(tp.x0) - orx, take(tp.y0) - ory,
+                take(tp.x1) - orx, take(tp.y1) - ory,
+                take(tp.x2) - orx, take(tp.y2) - ory,
+                take(tp.iz0), take(tp.iz1), take(tp.iz2),
+                slot_ok.to(world.dtype), take(tp.colp)]
+      zbuf, cbuf = _raster_flat(r, planes, npx)
+      depth = torch.where(torch.isfinite(zbuf), zbuf, inf)
+      tiles = lambda x: x.reshape(B, ty, tx, TS, TS).permute(
+          0, 1, 3, 2, 4).reshape(B, H, W)
+      cimg, depth = tiles(cbuf), tiles(depth)
+  r.path_counts[path] = r.path_counts.get(path, 0) + 1
 
-  # background: pixels with no triangle nearer than zfar show the sky at
-  # zfar depth (the JAX package's analytic layer with no rects)
-  tri_wins = depth < r.zfar
-  cimg = torch.where(tri_wins, cimg, torch.full_like(cimg,
-                                                     _pack_sky(r.sky_rgb)))
-  depth = torch.where(tri_wins, depth, torch.full_like(depth, r.zfar))
+  # composite the analytic background layer: triangles win only where
+  # strictly nearer; rect-missed pixels carry the sky at zfar
+  bg_depth, bg_colp = _analytic_bg(r, kin, rgba, textures, cam, world)
+  tri_wins = depth < bg_depth
+  cimg = torch.where(tri_wins, cimg, bg_colp)
+  depth = torch.where(tri_wins, depth, bg_depth)
+  if r.depth_gl:
+    zn, zf = r.znear, r.zfar
+    depth = torch.clamp((zf / (zf - zn)) *
+                        (1.0 - zn / torch.clamp(depth, min=zn)), 0.0, 1.0)
   return _unpack_col(cimg), depth                       # uint8 [B, H, W, 3]

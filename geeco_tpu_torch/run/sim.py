@@ -16,8 +16,17 @@ the same resets on every device (not the JAX package's numbers).
 --background_video (a GIF or a directory of frames; other formats need
 OpenCV) puts one frame a step on the camera-facing wall of collected and
 evaluated episodes; --rendering_mode viewer draws the frames into the
-terminal (render/viewer.py).  Not ported, and raising with its ROADMAP
-Queue 1 item: --num_devices > 1 (item 18).
+terminal (render/viewer.py).
+
+--num_devices N (collect and controller) splits the --num_envs batch over N
+devices, one process each (parallel/mesh.py): N ranks spawned by the CLI,
+NCCL on cuda:0..N-1 or gloo on the CPU, joined through a file in the run's
+work dir.  The random draws are made for the whole batch on every rank (the
+same generator, the same stream) and each rank builds and steps its rows,
+so N ranks write the episodes one rank writes, under the same names; the
+controller's metrics are gathered in global env order and rank 0 writes
+the CSVs.  With --rendering_mode video or viewer, rank 0 shows its own
+episodes.  The other modes run in one process, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from ..data.keyframes import load_target_frames
 from ..data.tfrecord_io import write_episode_tfrecord
 from ..envs.base import GeecoEnv, ResetSpec
 from ..expert.policies import make_expert, rollout
+from ..parallel import mesh as PM
 from ..render.video import VideoRecorder
 from ..utils.runscript import save_run_command
 
@@ -97,7 +107,8 @@ def make_argparser(description: str, wrk_dir: str, shapes: str,
   ap.add_argument('--frame_res', type=int, nargs=2, default=[256, 256])
   ap.add_argument('--observation_format', type=str, default='rgb')
   ap.add_argument('--num_devices', type=int, default=1,
-                  help='not ported above 1 (ROADMAP Queue 1 item 18)')
+                  help='shard the env batch over this many devices, one '
+                       'process each (num_envs must divide evenly)')
   ap.add_argument('--num_envs', type=int, default=1,
                   help='batch of envs stepped in lockstep')
   ap.add_argument('--seed', type=int, default=0)
@@ -138,10 +149,11 @@ def parse(parser: argparse.ArgumentParser, argv=None) -> argparse.Namespace:
   return args
 
 
-def _check_ported(args):
-  if getattr(args, 'num_devices', 1) > 1:
-    raise NotImplementedError('--num_devices > 1: sharding the env batch '
-                              'is not ported (ROADMAP Queue 1 item 18)')
+def _env_mesh(args):
+  """This rank's mesh when the run is data-parallel, else None."""
+  if getattr(args, 'num_devices', 1) <= 1:
+    return None
+  return PM.make_mesh(args.num_devices)
 
 
 def build_env(args) -> GeecoEnv:
@@ -217,16 +229,18 @@ def _host(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 # ---------------------------------------------------------------- collect
 
 
-def _preroll(env: GeecoEnv, es, P: int, gen: torch.Generator):
+def _preroll(env: GeecoEnv, es, P: int, gen: torch.Generator, B: int,
+             rows: slice):
   """k ~ U[0, P] random pre-roll steps per env before the expert episode;
   inactive steps apply the no-op action so the batch stays in lockstep.
-  The recorded episode starts after it, with the step counter at 0."""
-  B = es.ts.shape[0]
-  k = torch.randint(0, P + 1, (B,), generator=gen)
-  acts = torch.rand((B, P, 3), generator=gen) * 2.0 - 1.0
+  The recorded episode starts after it, with the step counter at 0.  The
+  draws are made for all B envs of the batch, ``es`` holds its ``rows``."""
+  k = torch.randint(0, P + 1, (B,), generator=gen)[rows]
+  acts = (torch.rand((B, P, 3), generator=gen) * 2.0 - 1.0)[rows]
+  n = k.shape[0]
   for t in range(P):
-    act = torch.cat([acts[:, t], torch.zeros(B, 1)], -1)
-    act = torch.where((t < k)[:, None], act, torch.zeros(B, 4))
+    act = torch.cat([acts[:, t], torch.zeros(n, 1)], -1)
+    act = torch.where((t < k)[:, None], act, torch.zeros(n, 4))
     es = env.step(es, act.to(env.device))
   return es.replace(ts=torch.zeros_like(es.ts))
 
@@ -234,6 +248,8 @@ def _preroll(env: GeecoEnv, es, P: int, gen: torch.Generator):
 def run_collect(args):
   wrk_dir = os.path.join(args.wrk_dir, 'collect')
   os.makedirs(wrk_dir, exist_ok=True)
+  mesh = _env_mesh(args)
+  root = mesh is None or mesh.is_root
   env = build_env(args)
   specs = _load_specs(env, args)
   expert = make_expert(env)
@@ -262,45 +278,50 @@ def run_collect(args):
   # form a ready-to-train dataset directory (geeco_gym.py:283-289 layout)
   for meta_path in (os.path.join(wrk_dir, 'meta_info.json'),
                     os.path.join(wrk_dir, 'meta', 'meta_info.json')):
-    os.makedirs(os.path.dirname(meta_path), exist_ok=True)
-    with open(meta_path, 'w') as fp:
-      json.dump(meta_info_dict(env), fp, indent=2, sort_keys=True)
+    if root:                      # one rank writes the shared files
+      os.makedirs(os.path.dirname(meta_path), exist_ok=True)
+      with open(meta_path, 'w') as fp:
+        json.dump(meta_info_dict(env), fp, indent=2, sort_keys=True)
 
   episode_steps = _episode_steps(args, EPISODE_STEPS_COLLECT)
   env.setup()
   B = max(1, args.num_envs)
+  # this rank's envs of each chunk of B (all B in one process)
+  rows = slice(0, B) if mesh is None else mesh.rows(B)
   # DART-style noise-injected collection (--expert_noise): executed action
   # = expert + N(0, sigma) on the EE translation (gripper stays clean);
   # recorded cmd = the expert's clean corrective action
   sigma = max(0.0, getattr(args, 'expert_noise', 0.0))
   P = max(0, getattr(args, 'perturb_prefix', 0))
   video = VideoRecorder('collect', wrk_dir) \
-      if args.rendering_mode == 'video' else None
+      if args.rendering_mode == 'video' and root else None
   viewer = None
-  if args.rendering_mode == 'viewer':
+  if args.rendering_mode == 'viewer' and root:
     from ..render.viewer import TerminalViewer
     viewer = TerminalViewer()
   cycler = _background_cycler(args, env)
   gen = torch.Generator().manual_seed(args.seed)
   n_specs = 0 if specs is None else int(specs.mocap_qpos.shape[0])
-  successes: List[float] = []
+  successes: List[tuple] = []     # (episode_id, task_success)
 
   def launch(chunk):
     """One chunk's episodes: reset, pre-roll, the expert's rollout."""
     n = min(B, args.end_idx - chunk)
     if specs is not None:
       idx = np.minimum(np.arange(chunk, chunk + B), n_specs - 1)
-      es = env.reset_to(_take(specs, idx), gen)
+      es = env.reset_to(_take(specs, idx), gen, rows=rows)
     else:
-      es = env.reset_random(B, gen)
+      es = env.reset_random(B, gen, rows=rows)
     if P > 0:
-      es = _preroll(env, es, P, gen)
+      es = _preroll(env, es, P, gen, B, rows)
     if args.dry_run:
       return dict(chunk=chunk, n=n, es=es)
     noise = None
     if sigma > 0:
-      noise = sigma * torch.randn((B, episode_steps, 3), generator=gen)
-      noise = torch.cat([noise, torch.zeros(B, episode_steps, 1)], -1)
+      noise = sigma * torch.randn((B, episode_steps, 3),
+                                  generator=gen)[rows]
+      noise = torch.cat([noise, torch.zeros(noise.shape[0], episode_steps,
+                                            1)], -1)
     es_f, recs = rollout(env, es, expert, length=episode_steps,
                          record_fn=record_fn, action_noise=noise,
                          step_textures=_step_textures(cycler, env,
@@ -325,13 +346,16 @@ def run_collect(args):
     """Pull one finished chunk to the host and hand its episodes to the
     writers; returns their futures."""
     chunk, n = job['chunk'], job['n']
+    # this rank's envs of the chunk's n episodes: (local k, global index)
+    mine = [(k, g) for k, g in enumerate(range(rows.start, rows.stop))
+            if g < n]
     if args.dry_run:  # save initial configuration images only
       from PIL import Image
       rgb, _ = env.render(job['es'])
       rgb = rgb.cpu().numpy()
-      for k in range(n):
+      for k, g in mine:
         Image.fromarray(rgb[k]).save(
-            os.path.join(wrk_dir, f'init_{chunk + k + 1:04d}.png'))
+            os.path.join(wrk_dir, f'init_{chunk + g + 1:04d}.png'))
       return []
     recs = _host(job['recs'])
     metrics = _host(job['metrics'])
@@ -341,8 +365,8 @@ def run_collect(args):
     for fu in futures:
       fu.result()   # the previous chunk's writers: surface their errors
     futures = []
-    for k in range(n):
-      episode_id = chunk + k + 1
+    for k, g in mine:
+      episode_id = chunk + g + 1
       rec_k = {key: v[k] for key, v in recs.items()}
       ctx = _episode_context(env, goals[k], objs[k])
       if sigma > 0:
@@ -356,11 +380,11 @@ def run_collect(args):
         for frame in rec_k['rgb']:
           video.feed(frame)
         video.flush()
-      if viewer is not None and k == 0 and 'rgb' in rec_k:
+      if viewer is not None and g == 0 and 'rgb' in rec_k:
         for t, frame in enumerate(rec_k['rgb']):
           viewer.feed(frame, hud=f'episode {episode_id} t={t}')
       success = float(metrics['task_success'][k])
-      successes.append(success)
+      successes.append((episode_id, success))
       print(f'episode {episode_id}: task_success={success:.0f} '
             f'goal_dist={float(metrics["goal_dist"][k]):.4f}')
     return futures
@@ -376,7 +400,10 @@ def run_collect(args):
     video.finalize()
   if viewer is not None:
     viewer.close()
-  if successes:
+  if mesh is not None:          # every rank's episodes, in episode order
+    successes = sorted(sum(PM.all_gather_objects(successes, mesh), []))
+  successes = [v for _, v in successes]
+  if successes and root:
     print(f'>>> expert success rate: {np.mean(successes) * 100:.2f}% '
           f'({len(successes)} episodes)')
   return np.mean(successes) if successes else None
@@ -556,6 +583,8 @@ def run_controller_batched(args):
 
   wrk_dir = os.path.join(args.wrk_dir, 'controller')
   os.makedirs(wrk_dir, exist_ok=True)
+  mesh = _env_mesh(args)
+  root = mesh is None or mesh.is_root
   env = build_env(args)
   goal_conditioned = args.goal_condition == 'target'
   predictor = _make_predictor(args)
@@ -563,6 +592,7 @@ def run_controller_batched(args):
   carry_mode = getattr(args, 'carry_mode', 'auto')
 
   B = args.num_envs
+  rows = None if mesh is None else mesh.rows(B)   # this rank's envs
   n_eps = args.end_idx - args.start_idx
   specs = tgt_all = tgt_depth_all = None
   if args.dataset_dir:
@@ -573,7 +603,7 @@ def run_controller_batched(args):
   gen = torch.Generator().manual_seed(args.seed)
   episode_steps = _episode_steps(args, EPISODE_STEPS_CONTROL)
   cycler = _background_cycler(args, env)
-  rows = []
+  results = []
   # --rendering_mode video: per-episode eval videos for the first chunk's
   # first envs, with real paths in the eval CSV (reference protocol:
   # gym_pickplace.py:941-945, 705-720)
@@ -585,19 +615,24 @@ def run_controller_batched(args):
     rgba = None
     if specs is not None:
       idx = np.minimum(np.arange(chunk, chunk + B), n_eps - 1)
-      es0 = env.reset_to(_take(specs, idx), gen)
-      rgba = es0.rgba.cpu()
+      es0 = env.reset_to(_take(specs, idx), gen, rows=rows)
+      rgba = es0.rgba
+      if mesh is not None:
+        rgba = PM.all_gather_rows(rgba, mesh)
+      rgba = rgba.cpu()
       agg = evaluate_batched(
           env, config, model, goal_conditioned, B,
-          tgt_frames=_goal_frames(config, tgt_all, tgt_depth_all, idx,
+          tgt_frames=_goal_frames(config, tgt_all, tgt_depth_all,
+                                  idx if rows is None else idx[rows],
                                   env.device),
           n_steps=episode_steps, es0=es0, step_textures=step_textures,
-          carry_mode=carry_mode, collect_frames=V)
+          carry_mode=carry_mode, collect_frames=V, mesh=mesh)
     else:
       agg = evaluate_batched(env, config, model, goal_conditioned, B,
                              generator=gen, n_steps=episode_steps,
                              step_textures=step_textures,
-                             carry_mode=carry_mode, collect_frames=V)
+                             carry_mode=carry_mode, collect_frames=V,
+                             mesh=mesh)
     frames = None
     if V:
       agg, frames = agg  # [T, V, H, W, 3] uint8
@@ -605,12 +640,12 @@ def run_controller_batched(args):
     for k in range(n):
       episode_id = args.start_idx + chunk + k + 1
       video_file = ''
-      if frames is not None and k < V:
+      if frames is not None and k < V and root:
         vid = VideoRecorder(f'observation_{episode_id:04d}', wrk_dir)
         for frame in frames[:, k]:
           vid.feed(frame)
         video_file = vid.finalize() or ''
-      rows.append({
+      results.append({
           'episode_id': episode_id,
           'obj_vicinity': int(agg['obj_vicinity'][k]),
           'grasp_success': int(agg['grasp_success'][k]),
@@ -625,19 +660,21 @@ def run_controller_batched(args):
           '_drop_goal_dist': float(agg['drop_goal_dist'][k]),
           '_rgba': None if rgba is None else rgba[k],
       })
+  if not root:      # rank 0 writes the gathered rows
+    return results
   if args.rendering_mode == 'video' and specs is not None:
     _record_failure_videos(args, env, config, model, goal_conditioned,
-                           specs, tgt_all, tgt_depth_all, rows, wrk_dir)
-  _write_triage(wrk_dir, rows)
+                           specs, tgt_all, tgt_depth_all, results, wrk_dir)
+  _write_triage(wrk_dir, results)
   with open(os.path.join(wrk_dir, 'eval_results.csv'), 'w',
             newline='') as fp:
     writer = csv.DictWriter(fp, fieldnames=EVAL_FIELDS, delimiter=';',
                             extrasaction='ignore')
     writer.writeheader()
-    for r in rows:
+    for r in results:
       writer.writerow(r)
-  _write_final_results(wrk_dir, rows, echo=True)
-  return rows
+  _write_final_results(wrk_dir, results, echo=True)
+  return results
 
 
 def _write_final_results(wrk_dir, rows, echo=False):
@@ -808,12 +845,38 @@ def run_controller(args):
   return eval_results
 
 
+# the modes that shard their env batch over --num_devices (the JAX
+# package's _env_mesh users)
+SHARDED_MODES = ('collect', 'controller')
+
+
 def main(args):
-  _check_ported(args)
   wrk_dir = os.path.join(args.wrk_dir, args.sim_mode)
+  n = getattr(args, 'num_devices', 1)
+  sharded = n > 1 and args.sim_mode in SHARDED_MODES
+  if sharded and PM.make_mesh(None).size > 1:
+    return _rank_main(args)                 # a rank that launch started
   os.makedirs(wrk_dir, exist_ok=True)
   save_run_command(argparser=args._parser, run_dir=wrk_dir,
                    argv=getattr(args, '_argv', None))
+  if not sharded:
+    return _run_mode(args)
+  B = max(1, args.num_envs)
+  if B % n:
+    raise SystemExit(f'--num_envs {B} not divisible by --num_devices {n}')
+  ranks_args = argparse.Namespace(**{k: v for k, v in vars(args).items()
+                                     if k != '_parser'})
+  return PM.launch(_rank_main, n, ranks_args, device=args.device,
+                   init_dir=wrk_dir)
+
+
+def _rank_main(args):
+  """One rank of a --num_devices run: the mode on this rank's device."""
+  args.device = str(PM.make_mesh(args.num_devices).device)
+  return _run_mode(args)
+
+
+def _run_mode(args):
   modes = {'collect': run_collect, 'replay': run_replay,
            'random': run_random, 'controller': run_controller}
   if args.sim_mode not in modes:

@@ -13,10 +13,16 @@ from its first record and re-rendered on the device through
 Runs on ``--device`` (default: the card).
 
   python -m geeco_tpu_torch.run.train_e2evmc --dataset_dir D \\
-      --model_dir M --goal_condition target [--device cpu]
+      --model_dir M --goal_condition target [--device cpu] [--num_devices N]
 
-Not ported: ``--num_devices > 1`` (data parallelism, ROADMAP Queue 1
-item 18) raises.
+``--num_devices N`` trains data-parallel on N devices, one process each
+(parallel/mesh.py: N ranks spawned here, NCCL on cuda:0..N-1 or gloo on
+the CPU, joined through a file in the model dir): every rank reads the same
+batches, takes its part (``models.train.shard_batch``), and the gradients
+are all-reduced to the global-batch mean, so N ranks take the steps one
+rank takes on the whole batch.  Rank 0 alone writes the config,
+checkpoints, metrics.jsonl and snapshots; a stop (STOP file, RSS limit) is
+taken by all ranks together.
 """
 
 from __future__ import annotations
@@ -118,28 +124,74 @@ def to_device(arrays: Dict[str, np.ndarray], device) -> Dict[str,
   return out
 
 
+def render_env(meta: Dict, renderer_trim: str = '', device=None):
+  """The env that re-renders a state-only dataset on ``device``: the meta's
+  scene at its frame size, with the renderer options its
+  ``renderer_kwargs`` record (any option of ``build_renderer``, as the JAX
+  package's meta may name them), the binning caps overridden by
+  ``renderer_trim`` ('K1,K2'); set up."""
+  from ..envs.base import make_env
+  rkw = dict(meta.get('renderer_kwargs', {}))
+  if renderer_trim:
+    k1, k2 = (int(v) for v in renderer_trim.split(','))
+    rkw.update(coarse_k=k1, mid_k=k2)
+    print(f'>>> renderer binning trim: coarse_k={k1} mid_k={k2}')
+  env = make_env(meta.get('shapes', 'pad2-cube2'),
+                 frame_res=(meta['img_height'], meta['img_width']),
+                 renderer_kwargs=rkw, device=device)
+  env.setup()
+  return env
+
+
 def main(args):
+  from ..parallel import mesh as PM
+  from ..utils.runscript import save_run_command
+
+  if args.num_devices > 1 and PM.make_mesh(None).size == 1:
+    os.makedirs(args.model_dir, exist_ok=True)
+    save_run_command(argparser=args._parser, run_dir=args.model_dir,
+                     argv=getattr(args, '_argv', None))
+    ranks_args = argparse.Namespace(**{k: v for k, v in vars(args).items()
+                                       if k != '_parser'})
+    return PM.launch(_rank_main, args.num_devices, ranks_args,
+                     device=args.device, init_dir=args.model_dir)
+  if args.num_devices > 1:                 # a rank that launch started
+    return _rank_main(args)
+  os.makedirs(args.model_dir, exist_ok=True)
+  save_run_command(argparser=args._parser, run_dir=args.model_dir,
+                   argv=getattr(args, '_argv', None))
+  return train(args)
+
+
+def _rank_main(args):
+  """One rank of a --num_devices run, on this rank's device."""
+  from ..parallel import mesh as PM
+  args.device = str(PM.make_mesh(args.num_devices).device)
+  return train(args)
+
+
+def train(args):
+  """The training run of ``main``, in one process or as one rank."""
   from ..data.dataset import (episode_pipeline, get_meta, input_pipeline,
                               list_records)
   from ..data.episode import load_episode
   from ..models import snapshots
   from ..models.params import (create_e2evmc_config, load_model_config,
                                save_model_config)
-  from ..models.train import make_episode_train_fns, make_train_fns
+  from ..models.train import (make_episode_train_fns, make_train_fns,
+                              shard_batch, shard_train_state)
+  from ..parallel import mesh as PM
   from ..utils.device import resolve_device
-  from ..utils.runscript import save_run_command
 
-  if args.num_devices > 1:
-    raise NotImplementedError('--num_devices > 1: data parallelism is not '
-                              'ported (ROADMAP Queue 1 item 18)')
   device = resolve_device(args.device)
-  os.makedirs(args.model_dir, exist_ok=True)
-  save_run_command(argparser=args._parser, run_dir=args.model_dir,
-                   argv=getattr(args, '_argv', None))
+  mesh = PM.make_mesh(args.num_devices) if args.num_devices > 1 else None
+  root = mesh is None or mesh.is_root
 
   # --- config: load-if-exists precedence (train_e2evmc.py:229-252)
   config_path = os.path.join(args.model_dir, 'e2evmc_config.json')
-  if os.path.exists(config_path):
+  exists = os.path.exists(config_path)
+  PM.barrier(mesh)        # every rank has looked before rank 0 writes
+  if exists:
     config = load_model_config(config_path)
     print(f'>>> Loaded existing model config from {config_path}')
   else:
@@ -156,8 +208,9 @@ def main(args):
         'start_boost': args.start_boost,
         'start_boost_windows': args.start_boost_windows,
     })
-    save_model_config(config, config_path)
-    print(f'>>> Saved model config to {config_path}')
+    if root:
+      save_model_config(config, config_path)
+      print(f'>>> Saved model config to {config_path}')
 
   goal_conditioned = args.goal_condition == 'target'
   episode_mode = args.train_mode == 'episode'
@@ -172,16 +225,7 @@ def main(args):
       raise SystemExit('state-only datasets require --train_mode episode '
                        '(on-device re-rendering)')
     meta = get_meta(args.dataset_dir)
-    from ..envs.base import make_env
-    rkw = dict(meta.get('renderer_kwargs', {}))
-    if args.renderer_trim:
-      k1, k2 = (int(v) for v in args.renderer_trim.split(','))
-      rkw.update(coarse_k=k1, mid_k=k2)
-      print(f'>>> renderer binning trim: coarse_k={k1} mid_k={k2}')
-    env = make_env(meta.get('shapes', 'pad2-cube2'),
-                   frame_res=(meta['img_height'], meta['img_width']),
-                   renderer_kwargs=rkw, device=device)
-    env.setup()
+    env = render_env(meta, args.renderer_trim, device)
     render_fn = env.render_from_qpos
     print('>>> state-only dataset: on-device re-rendering '
           f'({meta.get("shapes", "pad2-cube2")})')
@@ -190,10 +234,11 @@ def main(args):
   if episode_mode:
     init_fn, train_step, eval_step, _ = make_episode_train_fns(
         config, goal_conditioned, chunk_windows=args.chunk_windows,
-        render_fn=render_fn, aug_pad=args.aug_shift, device=device)
+        render_fn=render_fn, aug_pad=args.aug_shift, device=device,
+        mesh=mesh)
   else:
     init_fn, train_step, eval_step, _ = make_train_fns(
-        config, goal_conditioned, device=device)
+        config, goal_conditioned, device=device, mesh=mesh)
   ts = init_fn(torch.Generator().manual_seed(args.seed), config.batch_size)
 
   # resume: prefer a full train state (weights + optimizer moments), fall
@@ -208,8 +253,11 @@ def main(args):
     ts = ts.replace(step=snapshots.checkpoint_step(latest))
     print(f'>>> Resumed params from {latest}')
 
+  if mesh is not None:      # replicated weights, this rank's carry rows
+    ts = shard_train_state(ts, mesh)
   global_step = int(ts.step)
   with_depth = config.img_channels == 4
+  part = (lambda b: b) if mesh is None else (lambda b: shard_batch(b, mesh))
 
   def batches(mode, epoch):
     train = mode == 'train'
@@ -221,23 +269,26 @@ def main(args):
           window_size=config.window_size, fetch_target=goal_conditioned,
           num_epochs=1, with_depth=with_depth,
           aug_shift=args.aug_shift if train else 0, **order):
-        yield (to_device(b, device),)
+        yield (to_device(part(b), device),)
     else:
       for f, l in input_pipeline(
           args.dataset_dir, args.split_name, mode,
           window_size=config.window_size, fetch_target=goal_conditioned,
           batch_size=config.batch_size, num_epochs=1,
           with_depth=with_depth, **order):
-        yield to_device(f, device), to_device(l, device)
+        yield to_device(part(f), device), to_device(part(l), device)
 
   def save_ckpt(step):
+    if not root:
+      return
     snapshots.save_checkpoint(args.model_dir, step, ts.model,
                               keep_last=args.num_last_ckpt)
     snapshots.save_train_state(args.model_dir, step, ts,
                                keep_last=args.num_last_ckpt)
 
   metrics_path = os.path.join(args.model_dir, 'metrics.jsonl')
-  with open(metrics_path, 'a') as metrics_log:
+  with (open(metrics_path, 'a') if root else
+        open(os.devnull, 'w')) as metrics_log:
     for epoch in range(args.num_epochs):
       if 0 < args.max_total_steps <= global_step:
         print(f'>>> reached max_total_steps={args.max_total_steps}; done')
@@ -260,12 +311,13 @@ def main(args):
           metrics_log.flush()
           print(f'step {global_step}: loss={rec["loss"]:.5f} '
                 f'rss={rec["rss_gb"]:.1f}G')
-          if os.path.exists(os.path.join(args.model_dir, 'STOP')):
+          if PM.any_rank(root and os.path.exists(
+              os.path.join(args.model_dir, 'STOP')), mesh):
             save_ckpt(global_step)
             print(f'>>> STOP file present; checkpointed at step '
                   f'{global_step}, exiting 0 (treated as training complete)')
             raise SystemExit(0)
-          if rec['rss_gb'] > args.max_rss_gb:
+          if PM.any_rank(rec['rss_gb'] > args.max_rss_gb, mesh):
             save_ckpt(global_step)
             print(f'>>> RSS {rec["rss_gb"]:.1f} GiB > --max_rss_gb '
                   f'{args.max_rss_gb}; checkpointed at step {global_step}, '
@@ -295,8 +347,9 @@ def main(args):
         metrics_log.write(json.dumps(rec) + '\n')
         metrics_log.flush()
         save_ckpt(global_step)
-        snapshots.export_snapshot(args.model_dir, eval_loss,
-                                  num_best=args.num_best_ckpt)
+        if root:
+          snapshots.export_snapshot(args.model_dir, eval_loss,
+                                    num_best=args.num_best_ckpt)
         print(f'epoch {epoch}: eval_loss={eval_loss:.5f} '
               + ' '.join(f'{k}={v:.4f}' for k, v in sorted(agg.items())
                          if k != 'loss'))

@@ -44,6 +44,7 @@ from geeco_tpu_torch.models import train as TT
 from geeco_tpu_torch.models.params import (create_e2evmc_config,
                                            save_model_config)
 from geeco_tpu_torch.models.predictor import GoalE2EVMCPredictor
+from geeco_tpu_torch.parallel import mesh as PM
 from geeco_tpu_torch.run import (dataset_tools, gym_pickplace, gym_pushing,
                                  sim, train_e2evmc)
 
@@ -376,14 +377,22 @@ def _gif(path, colors):
     ['--background_video', 'clip.gif'], ['--rendering_mode', 'viewer'],
     ['--num_devices', '2']])
 def test_unported_sim_options_raise(monkeypatch, tmp_path, flags):
-  """--num_devices > 1 is not ported and raises.  The background video
-  (a GIF cycled onto the wall, one frame a step) and the viewer mode are
-  ported: a small collect runs with each, and the background video is
-  rejected with a state-only collect, as in the JAX package."""
+  """Options the port once lacked run now.  --num_devices 2: a dry-run
+  collect of 4 envs on two CPU ranks (parallel/mesh.py) writes the four
+  initial frames, two a rank (tests/test_torch_parallel.py compares two
+  ranks' episodes with one's).  The background video (a GIF cycled onto
+  the wall, one frame a step) and the viewer mode: a small collect runs
+  with each, and the background video is rejected with a state-only
+  collect, as in the JAX package."""
   if flags[0] == '--num_devices':
-    with pytest.raises(NotImplementedError, match='item 18'):
-      gym_pickplace.main(gym_pickplace.parse(DEV + [
-          '--wrk_dir', str(tmp_path)] + flags))
+    from tests.test_torch_parallel import LAUNCH_TIMEOUT, _sim_rank
+    PM.launch(_sim_rank, 2, DEV + RES + [
+        '--wrk_dir', str(tmp_path), '--sim_mode', 'collect', '--dry_run',
+        '--num_envs', '4', '--end_idx', '4'] + flags, device='cpu',
+        init_dir=str(tmp_path), timeout=LAUNCH_TIMEOUT)
+    assert sorted(f for f in os.listdir(tmp_path / 'collect')
+                  if f.endswith('.png')) == [f'init_{i:04d}.png'
+                                             for i in range(1, 5)]
     return
   monkeypatch.setattr(sim, 'GeecoEnv', functools.partial(EB.GeecoEnv,
                                                          **SMALL))
@@ -413,10 +422,43 @@ def test_unported_sim_options_raise(monkeypatch, tmp_path, flags):
     assert (rgb != collect(str(tmp_path / 'plain'), [])).any()
 
 
-def test_unported_trainer_options_raise(tmp_path):
-  with pytest.raises(NotImplementedError, match='item 18'):
-    train_e2evmc.main(train_e2evmc.parse(DEV + [
-        '--model_dir', str(tmp_path), '--num_devices', '2']))
+def test_unported_trainer_options_raise(chain, tmp_path):
+  """--num_devices 2, which the port once lacked, through the trainer CLI:
+  it spawns two CPU ranks (one episode of each batch a rank) and takes the
+  steps one process takes on the frame dataset: the same losses in
+  metrics.jsonl, the same weights in the checkpoint (float32 sums in
+  another order: tests/test_torch_parallel.py's tolerances), written once
+  by rank 0."""
+  from tests.test_torch_parallel import METRIC_TOL, WEIGHT_ATOL
+  runs = {}
+  for n in (1, 2):
+    model_dir = str(tmp_path / f'model{n}')
+    os.makedirs(model_dir)
+    save_model_config(create_e2evmc_config(MODEL),
+                      os.path.join(model_dir, 'e2evmc_config.json'))
+    train_e2evmc.main(train_e2evmc.parse(DEV + TRAIN + [
+        '--dataset_dir', _ds(chain, 'frames'), '--model_dir', model_dir,
+        '--num_devices', str(n)]))
+    with open(os.path.join(model_dir, 'metrics.jsonl')) as f:
+      recs = [json.loads(l) for l in f]
+    ckpt = snapshot_weights(model_dir)
+    runs[n] = recs, ckpt
+  (recs1, w1), (recs2, w2) = runs[1], runs[2]
+  assert [(r['split'], r['step']) for r in recs2] == [
+      (r['split'], r['step']) for r in recs1]
+  for r2, r1 in zip(recs2, recs1):
+    for k in ('loss', 'loss_cmd_ee', 'loss_cmd_grp'):
+      np.testing.assert_allclose(r2[k], r1[k], err_msg=k, **METRIC_TOL)
+  assert w2.keys() == w1.keys()
+  for k in w1:
+    np.testing.assert_allclose(w2[k].numpy(), w1[k].numpy(), rtol=0,
+                               atol=WEIGHT_ATOL, err_msg=k)
+
+
+def snapshot_weights(model_dir):
+  from geeco_tpu_torch.models import snapshots
+  path = snapshots.latest_checkpoint(model_dir)
+  return torch.load(path, map_location='cpu', weights_only=False)
 
 
 def test_cli_entry_points_default_to_the_card(tmp_path):

@@ -20,6 +20,7 @@ from geeco_tpu_torch.core.convert import e2evmc_params_from_reference
 from geeco_tpu_torch.envs.base import make_env
 from geeco_tpu_torch.models import closed_loop as TC
 from geeco_tpu_torch.models import e2evmc as TE
+from geeco_tpu_torch.parallel import mesh as PM
 
 torch.set_num_threads(1)
 
@@ -135,8 +136,14 @@ def test_closed_loop_batched_eval(env, monkeypatch):
   assert [torch.equal(s, env.background_textures(t))
           for s, t in zip(seen, tex)] == [True, True]
   assert bool(torch.isfinite(agg_t['min_goal_dist']).all())
-  with pytest.raises(NotImplementedError):
-    TC.evaluate_batched(env, cfg, model, True, 2, mesh=object())
+  # a one-rank mesh runs the whole batch: the same metrics and frames
+  # (two ranks: tests/test_torch_parallel.py)
+  agg_m, frames_m = TC.evaluate_batched(
+      env, cfg, model, True, 2, torch.Generator().manual_seed(1), n_steps=2,
+      collect_frames=1, mesh=PM.Mesh(1, 0, torch.device('cpu')))
+  assert np.array_equal(frames_m, frames)
+  for k, v in agg.items():
+    assert torch.equal(agg_m[k], v), k
 
 
 def test_synth_target_frames_moves_the_task_object(env, monkeypatch):

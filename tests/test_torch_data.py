@@ -417,10 +417,17 @@ def test_tex_grid_matches_jax_scene(frame64):
     assert te.renderer.scene.tri.shape == jr.scene.tri.shape, tex_grid
 
 
-def test_unported_renderer_options_raise():
-  with pytest.raises(NotImplementedError, match='item'):
-    tmake_env('pad2-cube2', device='cpu',
-              renderer_kwargs={'analytic_rects': True})
+def test_analytic_rects_option_builds_jax_scene(frame64):
+  """renderer_kwargs={'analytic_rects': True} (raised before the option was
+  ported) builds the JAX renderer's rect scene."""
+  jm, ja, _, _ = frame64
+  te = tmake_env('pad2-cube2', frame_res=(64, 64), device='cpu',
+                 renderer_kwargs={'analytic_rects': True})
+  jr = JR.build_renderer(jm, ja, width=64, height=64, analytic_rects=True)
+  assert te.renderer.scene.tri.shape == jr.scene.tri.shape
+  np.testing.assert_array_equal(te.renderer.scene.rect_geom,
+                                jr.scene.rect_geom)
+  assert te.renderer.scene.rect_geom.size > 0
 
 
 def test_start_sphere_draws_in_the_jax_sphere():

@@ -50,10 +50,12 @@ def _random_planes(TS, S, K, n_tiles, seed=0):
   return [x0, y0, x1, y1, x2, y2, iz0, iz1, iz2, ok, colp]
 
 
-@pytest.mark.parametrize('TS,S,K,n_tiles', [(8, 2, 16, 16), (16, 2, 64, 8)])
+@pytest.mark.parametrize('TS,S,K,n_tiles', [(8, 2, 16, 16), (16, 2, 64, 8),
+                                             (10, 2, 16, 16), (32, 2, 32, 8)])
 def test_raster_reference_matches_pallas_kernel(TS, S, K, n_tiles):
   """Twin on the port's coefficients vs the Pallas kernel (interpret mode)
-  on the same random planes; the tolerances of tests/test_render.py."""
+  on the same random planes; the tolerances of tests/test_render.py.  Tiles
+  10 and 32 are sides the CUDA kernel takes on its general path."""
   planes = _random_planes(TS, S, K, n_tiles)
   sky = 123456.0
   iz_ref, c_ref = JR._raster_pallas_call([jnp.asarray(p) for p in planes],
@@ -208,13 +210,25 @@ def test_shadows_only_darken(frame64):
 
 @pytest.mark.parametrize('tile', [4, 8, 12, 16])
 def test_kernel_limits_takes_patchable_tiles(tile):
-  RK.kernel_limits(tile)      # one 4x2 patch per lane of a warp
+  assert RK.kernel_limits(tile) == 'patch'  # one 4x2 patch per lane
 
 
 @pytest.mark.parametrize('tile', [1, 2, 6, 10, 18, 20, 32])
+def test_kernel_limits_general_path(tile):
+  """Every other side takes the kernel's general path (pixels strided over
+  the lanes); the twin takes it too."""
+  assert RK.kernel_limits(tile) == 'general'
+  coeffs = torch.zeros((1, 2, 13, 3))
+  iz, c = RK.raster_tiles(coeffs, tile, 5.0)
+  assert iz.shape == (1, 2, tile * tile) and bool((c == 5.0).all())
+
+
+@pytest.mark.parametrize('tile', [0, -1, -16])
 def test_kernel_limits_rejects(tile):
-  with pytest.raises(ValueError, match='4, 8, 12 or 16'):
+  with pytest.raises(ValueError, match='at least one pixel'):
     RK.kernel_limits(tile)
+  with pytest.raises(ValueError, match='at least one pixel'):
+    RK.raster_tiles(torch.zeros((1, 2, 13, 3)), tile, 5.0)
 
 
 @pytest.mark.parametrize('K', [0, 7, 50])

@@ -4,6 +4,7 @@
   python3 chip_smoke.py [--profile OUT.txt] [--psd-phases]
                         [--replay-only slice1|slice2|nutcone|clutter4]
                         [--cli-only frames|chain] [--scenes-only]
+                        [--bench-only]
 
 Drives the port's two paths at production settings on the card:
 
@@ -127,11 +128,23 @@ Phases; any failure exits non-zero:
      control step profiled through utils/profiling.trace (non-empty file);
      --num_devices above the card count raises.  Alone at the end with
      phase 3c: the raster kernel's time at each of those tile sides
+  15. the port's bench through its entry point (geeco_tpu_torch.bench's
+     main, as python -m geeco_tpu_torch.bench runs it) at its defaults:
+     B=256 control steps of step + render at collide_every=2 and binning
+     caps 192/96 (96 slots a tile), then the trainer at B=8 x T=99, its
+     renders at the same caps; a process beside the replays.  The first
+     raster launch of each batch size (256 frames; 100 and 8 in the
+     trainer) is held against the twin on its own coefficients.  The
+     bench fails itself unless the raster kernel ran once a timed control
+     step and ceil(B*T/100) + 1 times a train step; here it must exit 0
+     with one JSON line of the JAX bench's keys and rates above 0.  Its
+     rates are taken beside the other processes: not a measurement
 
 Phases 5 and 8, the two replays at B=1, the two replays of phase 13, the
-two parts of phase 12 and phase 13's other scenes run in a process each
-(this script with --replay-only slice1|slice2|nutcone|clutter4,
---cli-only frames|chain or --scenes-only) from the build on: everything is
+two parts of phase 12, phase 13's other scenes and phase 15 run in a
+process each (this script with --replay-only slice1|slice2|nutcone|clutter4,
+--cli-only frames|chain, --scenes-only or --bench-only) from the build on:
+everything is
 host-bound and the card idles most of the time.  Meanwhile this process
 does what times nothing: the set-up of both slices, the kernel checks of
 phases 3 and 6, the CPU frame, phase 9, the trainer's set-up and its
@@ -140,7 +153,7 @@ timed parts of phases 3, 4, 7, 10, 11 and 13 wait for those processes to
 end and run alone; phase 12's rates are taken beside them, on a shared
 host.
 
-The kernels line holds the raster kernel (phases 3, 4, 10-14), the PSD
+The kernels line holds the raster kernel (phases 3, 4, 10-15), the PSD
 solve (phases 6, 7, 13) and the raster kernel at tiles 8, 32 and 10
 (phase 14).
 
@@ -206,9 +219,9 @@ PSD_BUILDS = (((530, 39, 6, 128, 9), (1, 2, 4)),
 HBM_RATE = 3.35e12
 FP32_RATE = 67e12
 # slice 3: the trainer at bench.py's point (bench.py:190-203): B episodes of
-# T steps, windows encoded in chunks of 8, state re-rendered RENDER_CHUNK
-# frames a call
-TRAIN_B, TRAIN_T, RENDER_CHUNK = 8, 99, 100
+# T steps, windows encoded in chunks of 8, state re-rendered
+# geeco_tpu_torch.bench.RENDER_CHUNK frames a call
+TRAIN_B, TRAIN_T = 8, 99
 TRAIN_STEPS = 5         # timed train steps, after one warm-up step
 CL_STEPS = 5            # closed-loop control steps of the ENVS envs
 # the flagship's heads in bf16 against float32 convolutions (8 bits of
@@ -254,6 +267,11 @@ SCENES_ONLY = ('pad2-cube2-clutter12', 'ball-cup', 'bridge-pad',
 SCENE_ENVS, SCENE_SETTLE = 8, 2
 SCENE_BATCH = {'ball-cup': ENVS}   # its peak memory at the full batch
 SCENES_SUMMARY = os.path.join(ROOT, 'build', 'scenes_smoke.json')
+# phase 15: the port's bench at its defaults, a process beside the
+# replays; its stdout and stderr go to BENCH_LOG.out and .err, its raster
+# launches and their check against the twin to BENCH_LOG.json
+BENCH_LOG = os.path.join(ROOT, 'build', 'bench_smoke')
+BENCH_KEYS = ('metric', 'value', 'unit', 'vs_baseline', 'train_steps_per_sec')
 # in this process: clutter4 and nut-cone at ENVS envs (settle steps cut to
 # SCENE_SETTLE: the set-ups run beside the replays), SCENE_STEPS timed
 # control steps of step + render; their K2 operands at rolling=False,
@@ -504,23 +522,14 @@ def profile_step(fn, label, card, path='', top=0):
   return launches, device_ms, wall
 
 
-def flagship_config():
-  """The flagship E2E-VMC (__graft_entry__.py: goal-conditioned,
-  dynimg/dyndiff, 256x256, bf16 convolutions) with the trainer settings of
-  bench.py:190-196."""
-  from geeco_tpu_torch.models.params import create_e2evmc_config
-  d = {'control_mode': 'cartesian', 'proc_obs': 'dynimg',
-       'proc_tgt': 'dyndiff', 'img_channels': 3, 'window_size': 4,
-       'batch_size': 32, 'lr': 2e-4, 'lambda_aux': 1.0,
-       'loss_weighting': 'cmd_mag', 'start_boost': 6.0,
-       'start_boost_windows': 13}
-  return create_e2evmc_config(d)
-
-
 def model_checks(card):
-  """Phase 9.  Returns (config, flagship model with its heads perturbed)."""
+  """Phase 9.  Returns (config, flagship model with its heads perturbed):
+  the flagship E2E-VMC (__graft_entry__.py: goal-conditioned,
+  dynimg/dyndiff, 256x256, bf16 convolutions) with the bench's trainer
+  settings."""
+  from geeco_tpu_torch.bench import bench_config
   from geeco_tpu_torch.models import e2evmc as TE
-  cfg = flagship_config()
+  cfg = bench_config()
   model = TE.make_model(cfg, True, device='cuda',
                         generator=torch.Generator().manual_seed(0))
   # zero-initialised heads predict exactly 0: give them seeded weights so
@@ -651,22 +660,26 @@ def small_train_check():
 
 
 @contextlib.contextmanager
-def checked_raster(rk, label, first_of_each_size=False):
+def checked_raster(rk, label, first_of_each_size=False, stream=None):
   """Hold the raster kernel against its twin inside the block, on the
   coefficients its callers gave it and on the output they went on with:
   every launch, or the first launch of each batch size.  Yields a dict
-  with the frames of every launch ('sizes') and the largest max_abs_err
-  ('err').  The comparisons launch nothing: the counts stay the path's."""
+  with the frames of every launch ('sizes'), the coefficient shapes held
+  ('checked') and the largest max_abs_err ('err').  The comparisons launch
+  nothing: the counts stay the path's.  ``stream``: where the comparisons
+  print (default stdout)."""
   launch = rk.raster_tiles
-  out = {'sizes': [], 'err': 0.0}
+  out = {'sizes': [], 'checked': [], 'err': 0.0}
 
   def checked_launch(coeffs, tile, sky):
     res = launch(coeffs, tile, sky)
     size = coeffs.shape[0]
     if not (first_of_each_size and size in out['sizes']):
-      out['err'] = max(out['err'], compare_raster(
-          coeffs, tile, sky, rk, f'{label} render {len(out["sizes"]) + 1}',
-          res))
+      with contextlib.redirect_stdout(stream or sys.stdout):
+        out['err'] = max(out['err'], compare_raster(
+            coeffs, tile, sky, rk,
+            f'{label} render {len(out["sizes"]) + 1}', res))
+      out['checked'].append(list(coeffs.shape))
     out['sizes'].append(size)
     return res
 
@@ -682,46 +695,22 @@ def checked_raster(rk, label, first_of_each_size=False):
 
 def trainer_setup(env, card):
   """Phase 10a: the episode trainer at the bench point on slice 1's env,
-  bench.py's batch around the env's settled state (bench.py:205-231), and
+  the bench's batch around the env's settled state (bench.train_batch), and
   one warm-up step, in which every raster-kernel launch is held against the
   twin on its own coefficients.  Returns (train_step, state, batch, warm-up
   loss, the kernel's max_abs_err)."""
-  from geeco_tpu_torch.data.dataset import window_indices
+  from geeco_tpu_torch.bench import RENDER_CHUNK, bench_config, train_batch
   from geeco_tpu_torch.models import train as TT
   from geeco_tpu_torch.render import raster_kernel as rk
-  cfg = flagship_config()
+  cfg = bench_config()
   t0 = time.perf_counter()
   init_fn, train_step, _, _ = TT.make_episode_train_fns(
       cfg, True, chunk_windows=8, render_fn=env.render_from_qpos,
       aug_pad=10, render_chunk=RENDER_CHUNK, device='cuda')
   ts = init_fn(torch.Generator().manual_seed(0), cfg.batch_size)
-  B, T, J = TRAIN_B, TRAIN_T, cfg.dim_jnt_state
-  phys = env.setup()
-  q0 = phys.qpos[0].cpu().numpy()
-  widx = window_indices(T, cfg.window_size, pad_start=True)
-  N = widx.shape[0]
-  rng = np.random.RandomState(0)
-  qpos = (q0[None, None] + 0.01 * rng.randn(B, T, q0.shape[0])).astype(
-      np.float32)
-  mocap = np.concatenate([phys.mocap_pos[0, 0].cpu().numpy(),
-                          phys.mocap_quat[0, 0].cpu().numpy()])
-  mocap = np.broadcast_to(mocap.astype(np.float32), (B, T, 7)).copy()
-  batch = {
-      'widx': widx, 'valid': np.ones((N,), bool),
-      'jnt_state': rng.randn(B, T, J).astype(np.float32),
-      'cmd': rng.uniform(-1, 1, (B, N, 4)).astype(np.float32),
-      'vel_target': rng.randn(B, N, J).astype(np.float32),
-      'ee_target': rng.randn(B, N, 7).astype(np.float32),
-      'grp_target': rng.rand(B, N, 2).astype(np.float32),
-      'pos_ee': rng.randn(B, N, 3).astype(np.float32),
-      'pos_obj': rng.randn(B, N, 3).astype(np.float32),
-      'qpos': qpos, 'mocap': mocap,
-      'rgba': np.broadcast_to(env.rgba0.astype(np.float32),
-                              (B,) + env.rgba0.shape).copy(),
-      'tgt_qpos': qpos[:, -1], 'tgt_mocap': mocap[:, -1],
-      'aug_shift': rng.randint(-10, 11, (B, 2)),
-  }
-  batch = {k: torch.as_tensor(v, device='cuda') for k, v in batch.items()}
+  B, T = TRAIN_B, TRAIN_T
+  batch = train_batch(env, B, T, 'cuda', cfg)
+  N = batch['widx'].shape[0]
   # the warm-up step's renders (chunks of RENDER_CHUNK frames, the last one
   # padded, then the goal frames): the kernel against its twin on the
   # coefficients the trainer gave it, the output the trainer went on with
@@ -746,6 +735,7 @@ def trainer_run(train_step, ts, batch, loss0, card, rk, env):
   profiled step and one profiled render of RENDER_CHUNK frames (the
   renders' share of the step).  Returns the raster-kernel launches the
   timed steps made."""
+  from geeco_tpu_torch.bench import RENDER_CHUNK, train_launches
   rk.raster_tiles.launches = 0
   torch.cuda.reset_peak_memory_stats()
   torch.cuda.synchronize()
@@ -759,7 +749,7 @@ def trainer_run(train_step, ts, batch, loss0, card, rk, env):
   launches = rk.raster_tiles.launches
   peak = torch.cuda.max_memory_allocated()
   losses = [loss0] + torch.stack(losses).tolist()
-  per_step = -(-TRAIN_B * TRAIN_T // RENDER_CHUNK) + 1
+  per_step = train_launches(TRAIN_B, TRAIN_T)
   print(f'[train] {TRAIN_STEPS} train steps in {dt:.3f} s -> '
         f'{TRAIN_STEPS / dt:.4f} train steps/s (B={TRAIN_B} x T={TRAIN_T}, '
         f'256x256, bf16) on {card}; peak device memory '
@@ -792,6 +782,74 @@ def trainer_run(train_step, ts, batch, loss0, card, rk, env):
         'launches (and one render of the padded chunk, one of the goal '
         'frames)', flush=True)
   return launches
+
+
+def start_bench():
+  """Phase 15's process: this script with --bench-only, at the bench's
+  defaults (no BENCH_* variable), one CPU thread as the other children."""
+  env = {k: v for k, v in os.environ.items() if not k.startswith('BENCH_')}
+  env['OMP_NUM_THREADS'] = '1'
+  os.makedirs(os.path.dirname(BENCH_LOG), exist_ok=True)
+  with open(BENCH_LOG + '.out', 'w') as out, \
+      open(BENCH_LOG + '.err', 'w') as err:
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             '--bench-only'], cwd=ROOT, env=env, stdout=out,
+                            stderr=err)
+
+
+def bench_child():
+  """Phase 15 (``--bench-only``): the bench's entry point with no arguments,
+  the first raster launch of each batch size held against the twin (its
+  lines on stderr: stdout holds the bench's JSON line alone); the
+  launches and the check go to BENCH_LOG.json."""
+  from geeco_tpu_torch import bench
+  from geeco_tpu_torch.render import raster_kernel as rk
+  with checked_raster(rk, 'bench', first_of_each_size=True,
+                      stream=sys.stderr) as chk:
+    bench.main([])
+  os.makedirs(os.path.dirname(BENCH_LOG), exist_ok=True)
+  with open(BENCH_LOG + '.json', 'w') as f:
+    json.dump({'launches': len(chk['sizes']), 'checked': chk['checked'],
+               'max_abs_err': chk['err']}, f)
+
+
+def bench_phase(child):
+  """Phase 15: the bench's process ended with exit 0 (the bench fails
+  itself when the raster kernel's launches break its rule), printed one
+  JSON line with the JAX bench's keys and rates above 0, and held the
+  kernel against its twin at the shapes of both halves.  Returns
+  ({'bench': launches}, the kernel's max_abs_err)."""
+  from geeco_tpu_torch import bench
+  rc = child.wait()
+  print(f'[children] the bench (phase 15) ended by t='
+        f'{time.perf_counter() - T_START:.0f} s', flush=True)
+  with open(BENCH_LOG + '.out') as f:
+    out = f.read().splitlines()
+  with open(BENCH_LOG + '.err') as f:
+    err = f.read().splitlines()
+  for line in err[-40:]:
+    print(f'[bench] {line}', flush=True)
+  check(rc == 0, f'the bench failed with exit code {rc}')
+  check(len(out) == 1, f'the bench printed {len(out)} lines on stdout, not '
+        'one JSON line')
+  res = json.loads(out[0])
+  check(all(k in res for k in BENCH_KEYS) and 'truncated' not in res,
+        f'the bench\'s line lacks a key of {BENCH_KEYS} or was cut: {res}')
+  check(res['value'] > 0 and res['train_steps_per_sec'] > 0,
+        f'a rate of the bench is not above 0: {res}')
+  with open(BENCH_LOG + '.json') as f:
+    held = json.load(f)
+  kwargs, sweep, _, _ = bench.env_kwargs({})
+  slots = kwargs['renderer_kwargs']['mid_k']
+  want = [[n, 256, 13, slots] for n in (*sweep, bench.RENDER_CHUNK, 8)]
+  check(held['checked'] == want, f'the bench\'s raster launches held '
+        f'against the twin had shapes {held["checked"]}, not {want}')
+  print(f'[bench] {res["value"]} env-steps/s, {res["train_steps_per_sec"]} '
+        'train steps/s (beside other processes: not a measurement); '
+        f'{held["launches"]} raster kernel launches, those of shapes '
+        f'{held["checked"]} held against the twin: max_abs_err '
+        f'{held["max_abs_err"]}', flush=True)
+  return {'bench': held['launches']}, held['max_abs_err']
 
 
 def closed_loop_run(env, es, cfg, model, card, rk):
@@ -1955,8 +2013,14 @@ def main():
                   'workflow on the card, its summary written to '
                   'build/cli_smoke/<part>.json (a full run starts both, a '
                   'process each)')
+  ap.add_argument('--bench-only', action='store_true',
+                  help='phase 15 alone: the port\'s bench at its defaults, '
+                  'its raster launches checked against the twin, its '
+                  'output written to build/bench_smoke.* (a full run '
+                  'starts it, a process)')
   args = ap.parse_args()
-  if args.replay_only or args.cli_only or args.scenes_only:
+  if args.replay_only or args.cli_only or args.scenes_only or \
+      args.bench_only:
     # a child of a full run, beside six others on the host's cores: its
     # host work is launches, not CPU operators
     torch.set_num_threads(1)
@@ -1964,11 +2028,12 @@ def main():
   # ---- 1. the card
   if not torch.cuda.is_available():
     fail('torch.cuda.is_available() is false: this smoke test needs a GPU')
-  smi = subprocess.run(
-      ['nvidia-smi', '--query-gpu=name,power.limit',
-       '--format=csv,noheader'], capture_output=True, text=True, timeout=60)
-  card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
-      f'nvidia-smi failed: {smi.stderr.strip()}'
+  if args.bench_only:
+    # stdout is the bench's: its one JSON line
+    bench_child()
+    return
+  from geeco_tpu_torch.utils.device import card_name
+  card = card_name(torch.device('cuda'))
   print(f'[device] {torch.cuda.get_device_name(0)} | {card} | torch '
         f'{torch.__version__} cuda {torch.version.cuda}', flush=True)
   torch.backends.cuda.matmul.allow_tf32 = False
@@ -2039,6 +2104,7 @@ def main():
   children += [subprocess.Popen(me + ['--cli-only', part])
                for part in CLI_PARTS]
   children.append(subprocess.Popen(me + ['--scenes-only']))
+  children.append(start_bench())
   try:
     kernels = drive(card, children, args.profile)
   finally:
@@ -2211,8 +2277,9 @@ def drive(card, children, profile_path):
   opt_launches, opt_tiles, e = option_phase(env, es, rk, card, dev)
   raster_err = max(raster_err, e)
 
-  # phases 5 and 8, the replays' processes; everything below is timed and
-  # runs alone
+  # phases 5 and 8, the replays' processes, and phase 15's bench;
+  # everything below is timed and runs alone
+  *children, bench_child = children
   for child, which in zip(children, ('slice-1 replay', 'slice-2 replay',
                                      *(f'{r} replay' for r in REPLAYS),
                                      *(f'command-line workflow ({p})'
@@ -2231,6 +2298,8 @@ def drive(card, children, profile_path):
   with open(SCENES_SUMMARY) as f:
     scenes = json.load(f)
   raster_err = max(raster_err, scenes['max_abs_err'])
+  bench_launches, e = bench_phase(bench_child)
+  raster_err = max(raster_err, e)
 
   # ---- 3c. the raster kernel's time on the frame planes and on the
   # random ones
@@ -2367,12 +2436,14 @@ def drive(card, children, profile_path):
       'launches': (launches + train_launches + cl_launches +
                    sum(cli_launches.values()) + tex_launches +
                    sum(scenes['launches'].values()) +
-                   sum(scene_launches.values()) + opt_launches),
+                   sum(scene_launches.values()) + opt_launches +
+                   sum(bench_launches.values())),
       'launches_by_path': {'slice1': launches, 'trainer': train_launches,
                            'closed_loop': cl_launches, **cli_launches,
                            'textured': tex_launches, **scenes['launches'],
                            **scene_launches,
-                           'options_production': opt_launches},
+                           'options_production': opt_launches,
+                           **bench_launches},
       'max_abs_err': raster_err,
       'ms': ms, 'plain_ms': plain_ms, 'bound_ms': raster_bound[0],
       'bound_by': raster_bound[1], 'library_ms': None,

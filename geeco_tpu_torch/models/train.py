@@ -612,7 +612,7 @@ def shard_batch(batch: Dict, mesh: PM.Mesh) -> Dict:
   """The rank's part of a batch dict (numpy arrays or tensors, as given):
   shared features and scalars whole, every other leaf its rows.  (The JAX
   package's ``shard_batch`` also places the parts on the devices; here the
-  caller moves them, as ``run/train_e2evmc.to_device`` does.)"""
+  caller moves them, as ``utils/device.to_device`` does.)"""
   out = {}
   for key, x in batch.items():
     if isinstance(x, dict):

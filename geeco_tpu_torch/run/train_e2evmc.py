@@ -37,6 +37,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..utils.device import to_device
+
 ARGPARSER = argparse.ArgumentParser(description='Train E2E-VMC (PyTorch).')
 ARGPARSER.add_argument('--model_dir', type=str, default='../models/e2evmc')
 ARGPARSER.add_argument('--dataset_dir', type=str, required=False,
@@ -110,18 +112,6 @@ def parse(argv=None) -> argparse.Namespace:
 def _rss_gb() -> float:
   with open('/proc/self/statm') as fp:
     return int(fp.read().split()[1]) * os.sysconf('SC_PAGE_SIZE') / 2**30
-
-
-def to_device(arrays: Dict[str, np.ndarray], device) -> Dict[str,
-                                                             torch.Tensor]:
-  """A numpy batch on ``device``; int32 index arrays become int64."""
-  out = {}
-  for k, v in arrays.items():
-    t = torch.as_tensor(np.asarray(v))
-    if t.dtype == torch.int32:
-      t = t.long()
-    out[k] = t.to(device)
-  return out
 
 
 def render_env(meta: Dict, renderer_trim: str = '', device=None):

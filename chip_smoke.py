@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (geeco_tpu_torch) on one NVIDIA GPU.
 
-  python3 chip_smoke.py [--profile OUT.txt] [--psd-phases]
+  python3 chip_smoke.py [--profile OUT.txt] [--psd-phases] [--raster-phases]
                         [--replay-only slice1|slice2|nutcone|clutter4]
                         [--cli-only frames|chain] [--scenes-only]
                         [--bench-only]
@@ -35,9 +35,12 @@ Phases; any failure exits non-zero:
   2. build the CUDA kernels from csrc/ (nvcc, sm_90a) and time the build
   3. the raster kernel against its plain PyTorch twin, on random planes at
      the production shapes (also with no slot valid, with every slot valid
-     and with a slot count that is no multiple of 4) and on planes binned
-     from real frames; how many slots per tile those frames fill, and how
-     many of them can touch the tile; the kernel's time on both
+     and with a slot count that is no multiple of 4), bit for bit on random
+     planes at tile sides 1, 2, 6, 10, 18, 20, 24, 32 and 40 (B=3), and on
+     planes binned from real frames; how many slots per tile those frames
+     fill, and how many of them can touch the tile; the kernel's time on
+     both, its bound counted at what the kernel's own cull reads and
+     tests (raster_kernel.live_slots, loaded_chunks)
   4. the slice: reset_random, then control steps of step + render, with
      sanity checks and the count of raster-kernel launches; env-steps/s;
      one profiled control step (kernel launches, device time); env 0's
@@ -294,6 +297,11 @@ BLOCKGJ_QPOS_ATOL = 1e-4
 BLOCKGJ_PROD_MEDIAN = 1e-6
 # K1's other tile sides, timed alone: (tile, frame side)
 OPTION_TILES = ((8, 256), (32, 256), (10, 320))
+# K1 held bit for bit against its twin on random planes at a side of each
+# class of band plan (raster_kernel.subtile_plan): one band with masked
+# pixels (1, 2, 6, 10), two to seven bands (18, 20, 24, 32, 40)
+RANDOM_SIDES = (1, 2, 6, 10, 18, 20, 24, 32, 40)
+RANDOM_SIDES_SHAPE = (3, 16, 192)   # B, n_tiles, K
 
 
 def fail(msg: str):
@@ -363,26 +371,43 @@ def compare_raster(coeffs, tile, sky, rk, label, out=None):
 def slot_counts(coeffs, tile):
   """Per tile [B, n_tiles]: the slots that are filled (C0 is not the empty
   marker -1e30) and the slots that can touch the tile (no edge function
-  negative at all four corner pixels: what the kernel's cull keeps)."""
-  lo, hi = 0.5, tile - 0.5
-  missed = torch.zeros_like(coeffs[:, :, 0], dtype=torch.bool)
-  for e in range(3):
-    a, b, c = (coeffs[:, :, 3 * e + i] for i in range(3))
-    corners = [a * x + b * y + c < 0 for x in (lo, hi) for y in (lo, hi)]
-    missed |= corners[0] & corners[1] & corners[2] & corners[3]
-  return (coeffs[:, :, 2] > -1e29).sum(-1), (~missed).sum(-1)
+  negative at all four corner pixels of the tile: the kernel's cull, were
+  the tile one band)."""
+  from geeco_tpu_torch.render import raster_kernel as rk
+  whole = rk.live_slots(coeffs, tile, (tile, tile, 1))[:, :, 0]
+  return (coeffs[:, :, 2] > -1e29).sum(-1), whole.sum(-1)
 
 
-def raster_work(coeffs, tile, slots):
-  """(bytes, operations) of one raster launch that tests `slots` slots in
-  all against every pixel of their tile: the coefficients read once, both
-  buffers written once; per pixel and tested slot 4 affine forms (2
-  multiplies, 2 adds each) and 4 compares; per slot of the input the cull
-  (3 edges at 4 corners, 5 operations and a compare each)."""
+def raster_work(coeffs, tile, plan, keep, loaded=None):
+  """(bytes, operations) of one raster launch that culls the slots against
+  each band of `plan` and tests the slots `keep` ([B, n_tiles, bands, K]
+  bool, ``raster_kernel.live_slots``) against every pixel of their band:
+  both buffers written once; per pixel and tested slot 4 affine forms (2
+  multiplies, 2 adds each) and 4 compares.  With `loaded` ([B, n_tiles,
+  bands, chunks] bool, ``raster_kernel.loaded_chunks``), what the kernel's
+  own cull needs: the first edge (3 rows) of every slot read once and the
+  other 10 rows of each chunk that a band of its tile loads; per slot and
+  band the first edge at 4 corners (5 operations and a compare each), and
+  the other two edges for the slots of the chunks that band loads.
+  Without: every coefficient read once, and all three edges of every slot
+  culled against every band."""
+  from geeco_tpu_torch.render import raster_kernel as rk
   B, n_tiles, _, K = coeffs.shape
-  npx = tile * tile
-  return (4 * (coeffs.numel() + 2 * B * n_tiles * npx),
-          20.0 * npx * slots + 72.0 * B * n_tiles * K)
+  band_px = torch.tensor([(x1 - x0) * (y1 - y0)
+                          for x0, x1, y0, y1 in rk.band_rects(tile, plan)],
+                         dtype=torch.float64, device=coeffs.device)
+  tested = float((keep.sum(-1).double() * band_px).sum())
+  out_bytes = 4 * 2 * B * n_tiles * tile * tile
+  if loaded is None:
+    return (4 * coeffs.numel() + out_bytes,
+            20.0 * tested + 72.0 * B * n_tiles * K * plan[2])
+  chunk = torch.arange(loaded.shape[-1], device=coeffs.device)
+  per_chunk = torch.clamp(K - 32 * chunk, max=32).double()
+  band_slots = float((loaded.double() * per_chunk).sum())
+  tile_slots = float((loaded.any(2).double() * per_chunk).sum())
+  return (4 * (3 * B * n_tiles * K + 10 * tile_slots) + out_bytes,
+          20.0 * tested + 24.0 * B * n_tiles * K * plan[2] +
+          48.0 * band_slots)
 
 
 def describe_slots(coeffs, tile, label):
@@ -405,24 +430,42 @@ def describe_slots(coeffs, tile, label):
 
 def time_raster(coeffs, tile, sky, rk, card, label):
   """The raster kernel's and its twin's time on `coeffs`, with the bound
-  for the slots that can touch their tile, and beside it the bounds for the
-  filled slots and for all slots.  Returns (ms, plain_ms, bound)."""
+  for what the kernel's own cull needs (``raster_kernel.live_slots`` and
+  ``loaded_chunks`` on its plan), and beside it the bound for the same
+  slots with every coefficient read, the bound for the slots that can
+  touch their tile (one band a tile, every coefficient read: the earlier
+  count), for the filled slots and for all slots.  Returns (ms, plain_ms,
+  band bound, tile bound)."""
   ms = cuda_ms(lambda: rk.raster_tiles(coeffs, tile, sky), 30, queued=True)
   plain_ms = cuda_ms(lambda: rk.raster_tiles_reference(coeffs, tile, sky), 3)
-  filled, live = (int(n.sum()) for n in slot_counts(coeffs, tile))
-  total = coeffs.shape[0] * coeffs.shape[1] * coeffs.shape[3]
-  b_live, b_filled, b_all = (bound(*raster_work(coeffs, tile, n))
-                             for n in (live, filled, total))
+  plan = rk.subtile_plan(tile)
+  whole = (tile, tile, 1)
+  keep = rk.live_slots(coeffs, tile, plan)
+  loaded = rk.loaded_chunks(coeffs, tile, plan)
+  keep_tile = rk.live_slots(coeffs, tile, whole)
+  filled = (coeffs[:, :, 2] > -1e29)[:, :, None]
+  B, n_tiles, _, K = coeffs.shape
+  b_band = bound(*raster_work(coeffs, tile, plan, keep, loaded))
+  b_read_all = bound(*raster_work(coeffs, tile, plan, keep))
+  b_live, b_filled, b_all = (
+      bound(*raster_work(coeffs, tile, whole, k))
+      for k in (keep_tile, filled, torch.ones_like(filled)))
   print(f'[raster:{label}] kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms '
         f'(CUDA events: the kernel queued, the twin one by one); bound '
-        f'{b_live[0]:.4f} ms by {b_live[1]} '
-        f'counting the {live} slots that can touch their tile (of {filled} '
-        f'filled, {total} in all); counting every filled slot '
-        f'{b_filled[0]:.4f} ms by {b_filled[1]}, every slot {b_all[0]:.4f} '
-        f'ms by {b_all[1]}, on {card}', flush=True)
-  check(ms >= b_live[0], f'raster kernel time {ms} ms under its bound '
-        f'{b_live[0]} ms on {label} planes: the count is at fault')
-  return ms, plain_ms, b_live
+        f'{b_band[0]:.4f} ms by {b_band[1]} counting the {int(keep.sum())} '
+        f'slots the {plan[2]} band(s) of {plan[0]}x{plan[1]} px a tile keep '
+        f'(plan {plan}) and the first edge of every slot plus the '
+        f'{int(loaded.any(2).sum())} chunks of 32 slots the bands load '
+        f'({int(loaded.sum())} band-chunks), {b_read_all[0]:.4f} ms by '
+        f'{b_read_all[1]} reading every coefficient; {b_live[0]:.4f} ms by '
+        f'{b_live[1]} counting the {int(keep_tile.sum())} slots that can '
+        f'touch their tile (of {int(filled.sum())} filled, '
+        f'{B * n_tiles * K} in all) and every coefficient; counting every '
+        f'filled slot {b_filled[0]:.4f} ms by {b_filled[1]}, every slot '
+        f'{b_all[0]:.4f} ms by {b_all[1]}, on {card}', flush=True)
+  check(ms >= b_band[0], f'raster kernel time {ms} ms under its bound '
+        f'{b_band[0]} ms on {label} planes: the count is at fault')
+  return ms, plain_ms, b_band, b_live
 
 
 # profile_step reads a profile of fewer raw records through the profiler's
@@ -1521,6 +1564,115 @@ def psd_phases(card):
           f'; sum {sum(cyc):.0f} on {card}', flush=True)
 
 
+def check_sides(rk, sky, gen):
+  """K1 against its twin, bit for bit, on random planes at every class of
+  band plan (RANDOM_SIDES)."""
+  from geeco_tpu_torch.render import rasterizer as R
+  B_, n_, K_ = RANDOM_SIDES_SHAPE
+  for tile in RANDOM_SIDES:
+    planes = R._coeff_planes(random_planes(B_, n_, K_, tile, gen), tile, 2)
+    iz_k, c_k = rk.raster_tiles(planes, tile, sky)
+    iz_r, c_r = rk.raster_tiles_reference(planes, tile, sky)
+    torch.cuda.synchronize()
+    n_diff = int(((iz_k != iz_r) | (c_k != c_r)).sum())
+    print(f'[raster:sides] tile {tile}, plan {rk.subtile_plan(tile)} (band '
+          f'w, h, bands), coeffs {tuple(planes.shape)}: {n_diff} of '
+          f'{iz_k.numel()} pixels differ from the twin', flush=True)
+    check(n_diff == 0, f'K1 at tile {tile} is not bit-equal to its twin on '
+          'random planes')
+
+
+def raster_phases(card):
+  """--raster-phases: K1's time and how its warps share the SMs, on slice
+  1's reset state at B=64 rendered at tiles 8, 16, 32 (256x256) and 10
+  (320x320).  Times each launch as phase 14b does (``time_raster``), then
+  builds csrc/raster_tiles.cu once more with -DRASTER_PROFILE, whose lane
+  0 of every warp records its SM and its start and end on the SM's clock.
+  Per SM: its span (first start to last end), the warps resident over it
+  and its tail (the cycles after its last warp started); per warp: its
+  life, beside the slots its band keeps (``raster_kernel.live_slots``)."""
+  import ctypes
+  from geeco_tpu_torch.core import mjcf
+  from geeco_tpu_torch.envs.base import ASSET_ROOT, MODEL_XML, make_env
+  from geeco_tpu_torch.render import raster_kernel as rk
+  from geeco_tpu_torch.render import rasterizer as R
+  from geeco_tpu_torch.utils import build
+  so, args = build.raster_library(('RASTER_PROFILE=1',))
+  build.build_all([build.raster_library(), (so, args)])
+  for line in build.last_build_log.splitlines():
+    if line.startswith('$'):
+      line = ' '.join(a for a in line.split()
+                      if a.startswith('-D') or a.endswith('.cu'))
+    if '.cu' in line or 'registers' in line or 'spill' in line:
+      print(f'[raster:phases] {line.strip()}', flush=True)
+  lib = ctypes.CDLL(so)
+  vp, ci = ctypes.c_void_p, ctypes.c_int
+  lib.raster_tiles_f32.argtypes = [vp, vp, vp] + [ci] * 6 + [
+      ctypes.c_float, vp]
+  lib.raster_profile_read.argtypes = [vp, ci]
+  env = make_env('pad2-cube2', device='cuda')
+  env.setup()
+  es = env.reset_random(ENVS, torch.Generator(device='cuda').manual_seed(1))
+  am = mjcf.load_model(os.path.join(ASSET_ROOT, 'envs',
+                                    MODEL_XML['pad2-cube2']))
+  kin = env.kin(es)
+  sky = R._pack_sky((0.45, 0.86, 0.57))
+  check_sides(rk, sky, torch.Generator(device='cuda').manual_seed(0))
+  for tile, res in ((8, 256), (16, 256), (32, 256), (10, 320)):
+    r = _option_renderer(env, am, tile=tile, width=res, height=res)
+    with captured_raster(rk) as seen:
+      r.render(kin, es.rgba)
+    coeffs = seen[0][0]
+    iz_r, c_r = rk.raster_tiles_reference(coeffs, tile, sky)
+    iz, c = rk.raster_tiles(coeffs, tile, sky)
+    check(torch.equal(iz, iz_r) and torch.equal(c, c_r),
+          f'K1 is not bit-equal to the twin at tile {tile}')
+    time_raster(coeffs, tile, sky, rk, card, f'phases tile {tile}')
+    plan = rk.subtile_plan(tile)
+    B, n_tiles, _, K = coeffs.shape
+    warps = B * n_tiles * plan[2]
+    iz.fill_(float('nan'))
+    c.fill_(float('nan'))
+    for _ in range(2):
+      err = lib.raster_tiles_f32(
+          ctypes.c_void_p(coeffs.data_ptr()), ctypes.c_void_p(iz.data_ptr()),
+          ctypes.c_void_p(c.data_ptr()), B * n_tiles, K, tile, *plan,
+          ctypes.c_float(sky),
+          ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+      check(err == 0, f'profile launch failed: {err}')
+      torch.cuda.synchronize()
+    rec = np.zeros((warps, 3), dtype=np.uint32)
+    check(lib.raster_profile_read(rec.ctypes.data, warps) == 0,
+          'raster_profile_read failed')
+    check(torch.equal(iz, iz_r) and torch.equal(c, c_r),
+          f'the profile build is not bit-equal to the twin at tile {tile}')
+    sm, start, end = rec.astype(np.int64).T
+    kept = rk.live_slots(coeffs, tile, plan).sum(-1).flatten().cpu().numpy()
+    life = (end - start) % 2 ** 32
+    spans, tails, resident = [], [], []
+    for s in np.unique(sm):
+      on = sm == s
+      # the low 32 bits of the SM's clock, which may wrap once
+      t0 = (start[on] - start[on][0] + 2 ** 31) % 2 ** 32 - 2 ** 31
+      t0 -= t0.min()
+      t1 = t0 + life[on]
+      spans.append(t1.max())
+      tails.append(t1.max() - t0.max())
+      resident.append(life[on].sum() / t1.max())
+    spans, tails, resident = map(np.asarray, (spans, tails, resident))
+    heavy = kept >= np.percentile(kept, 99)
+    pct = lambda a: (f'mean {a.mean():.0f}, p50 {np.median(a):.0f}, p99 '
+                     f'{np.percentile(a, 99):.0f}, max {a.max():.0f}')
+    print(f'[raster:phases] tile {tile} at {res}x{res}, plan {plan} (band '
+          f'w, h, bands), {warps} warps on {len(spans)} SMs, B={B}, K={K}: '
+          f'SM span (cycles) {pct(spans)}; warps resident over the span '
+          f'{pct(resident)}; tail after the SM\'s last warp start '
+          f'{pct(tails)} ({tails.sum() / spans.sum():.3f} of the spans); '
+          f'warp life {pct(life)}; slots kept a warp {pct(kept)}; the 1% of '
+          f'warps that keep most: life {life[heavy].mean():.0f}, on {card}',
+          flush=True)
+
+
 def random_planes(B, n_tiles, K, tile, gen):
   """Random vertex planes [B, n_tiles, K] as _bin_hierarchical emits them."""
   dev = gen.device
@@ -1999,6 +2151,10 @@ def main():
   ap.add_argument('--psd-phases', action='store_true',
                   help='only build the PSD kernel with its phase counters '
                   'and print the cycles of each phase per cluster size')
+  ap.add_argument('--raster-phases', action='store_true',
+                  help='only time the raster kernel on frame planes at '
+                  'tiles 8, 16, 32 and 10, and print how its warps share '
+                  'the SMs there (a build with per-warp records)')
   ap.add_argument('--replay-only',
                   choices=('slice1', 'slice2', *REPLAYS), default='',
                   help='phase 5, 8 or one replay of phase 13 alone: the '
@@ -2044,6 +2200,9 @@ def main():
   t_start = time.perf_counter()
   if args.psd_phases:
     psd_phases(card)
+    return
+  if args.raster_phases:
+    raster_phases(card)
     return
 
   # ---- 2. build: the rasterizer, and the PSD solve for every shape and
@@ -2150,6 +2309,7 @@ def drive(card, children, profile_path):
       planes[9] = torch.full_like(planes[9], ok)
     raster_err = max(raster_err, compare_raster(
         R._coeff_planes(planes, TS, 2), TS, sky, rk, label))
+  check_sides(rk, sky, gen)
 
   # ---- 4a. slice 1: set-up
   t0 = time.perf_counter()
@@ -2303,15 +2463,16 @@ def drive(card, children, profile_path):
 
   # ---- 3c. the raster kernel's time on the frame planes and on the
   # random ones
-  ms, plain_ms, raster_bound = time_raster(coeffs, TS, sky, rk, card, 'frame')
+  ms, plain_ms, raster_bound, _ = time_raster(coeffs, TS, sky, rk, card,
+                                              'frame')
   time_raster(rnd_coeffs, TS, sky, rk, card, 'random')
   del coeffs, rnd_coeffs
   # ---- 14b. K1 at the other tile sides, on phase 14's frame planes
   tile_entries = []
   for tile, res in OPTION_TILES:
     t_coeffs, t_launches, t_err = opt_tiles.pop(tile)
-    t_ms, t_plain, t_bound = time_raster(t_coeffs, tile, sky, rk, card,
-                                         f'tile {tile} at {res}x{res}')
+    t_ms, t_plain, t_bound, t_tile_bound = time_raster(
+        t_coeffs, tile, sky, rk, card, f'tile {tile} at {res}x{res}')
     tile_entries.append({
         'name': f'raster_tiles[tile={tile}]', 'route': 'cuda',
         'source': 'geeco_tpu_torch/csrc/raster_tiles.cu',
@@ -2319,7 +2480,8 @@ def drive(card, children, profile_path):
         'launches': t_launches, 'max_abs_err': t_err, 'ms': t_ms,
         'plain_ms': t_plain, 'bound_ms': t_bound[0],
         'bound_by': t_bound[1], 'library_ms': None,
-        'path': rk.kernel_limits(tile),
+        'tile_bound_ms': t_tile_bound[0], 'path': rk.kernel_limits(tile),
+        'plan': list(rk.subtile_plan(tile)),
         'shape': list(t_coeffs.shape)})
     del t_coeffs
 

@@ -24,21 +24,27 @@ tensor on the CPU; any other device raises.  Nothing falls back.
 What bounds the kernel on an H100, and its design: tested against all K
 slots a pixel costs ~35 instructions per slot and the loop is bound by
 the instruction rate; but most slots of a real tile are empty or belong to
-triangles that miss the tile.  The kernel runs one warp per tile (four
-tiles per block, no block barrier): it reads the slots 32 at a time with
-coalesced loads (the next chunk in flight while this one is rasterized),
-drops every slot one of whose edge functions is negative at all four corner
-pixels of the tile (then it is negative at every pixel, so the slot can win
-none; empty slots, C0 = -1e30, go the same way), compacts the survivors in
-slot order into shared memory, slot-major, and rasterizes them with a 4x2
-patch of pixels per lane that shares the coefficient loads (four float4 per
-slot) and the rounded products ``a*px`` and ``b*py``.  What is left is bound
-by reading the coefficients once.  The kernel takes any K >= 0 and any
-tile side (``kernel_limits``): sides of 4, 8, 12 and 16 take the patch
-path above; every other side (10, 20, 32, ...) takes a general path with the
-same staging and cull, eight pixels strided by 32 per lane, the tile swept
-in passes of 256 pixels.  Both use 8 KB of static shared memory per block
-whatever K is.
+triangles that miss the tile.  ``subtile_plan`` cuts a tile into bands of
+at most 32 patches of 4x2 pixels, and the kernel runs one warp per band
+(four bands per block, no block barrier): it reads the tile's slots 32 at
+a time with coalesced loads (the next chunk in flight while this one is
+rasterized; a chunk none of whose slots' first edge reaches the band is
+not loaded at all), drops every slot one of whose edge functions is
+negative at all four corner pixels of the band (then it is negative at
+every pixel of the band, so the slot can win none there; empty slots,
+C0 = -1e30, go the same way), compacts the survivors in slot order into
+shared memory, slot-major, and rasterizes them with a 4x2 patch of pixels
+per lane that shares the coefficient loads (four float4 per slot) and the
+rounded products ``a*px`` and ``b*py``.  Sides 4, 8, 12 and 16 are one
+band that fills the tile (``kernel_limits``: the patch path), and at those
+sides what is left is bound by reading the coefficients once.  Every other
+side (``'general'``) takes the same kernel with the bands it needs: tile 32
+is four bands of 16x16 pixels, each culled on its own corners; tile 10 is
+one band of 3x5 patches whose pixels past the tile's edge are not stored.
+``live_slots`` counts the slots each band keeps, as the kernel does, and
+``loaded_chunks`` the chunks each band loads.  The kernel takes any K >= 0
+and any tile side, with 8 KB of static shared memory per block whatever K
+is.
 
 Numerics: the kernel evaluates each affine form as ``(a*px + b*py) + c``
 with rounded multiplies and adds and no FMA contraction (explicit
@@ -50,12 +56,13 @@ bit on the same coefficients.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 N_COEFF = 13
-_PATCH = (4, 2)           # pixels per lane of the patch path, columns x rows
-_MAX_PATCH_TILE = 16      # 32 lanes x 8 pixels
+_PATCH = (4, 2)           # pixels of a lane's patch, columns x rows
+_LANES = 32               # patches a band holds at most: a warp's lanes
 
 
 def _pixel_centres(tile: int, like: torch.Tensor):
@@ -98,15 +105,93 @@ def _check(coeffs: torch.Tensor, tile: int):
   kernel_limits(tile)
 
 
+def subtile_plan(tile: int) -> tuple:
+  """(band_w, band_h, bands): how the kernel cuts a tile into bands, one
+  warp each.  A band is band_w x band_h pixels, band_w / 4 patches across
+  and band_h / 2 down, at most 32 patches (one per lane); the bands are
+  laid out row-major over the tile, ceil(tile / band_w) across, and the
+  last row and column of bands may reach past the tile's edge (those pixels
+  are neither culled against nor stored).  The plan takes the fewest bands,
+  then the least band perimeter inside the tile (the slots that touch a
+  band grow with its perimeter), then the wider band.  Raises on a side
+  under one pixel."""
+  kernel_limits(tile)
+  return _plan(tile)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(tile: int) -> tuple:
+  cols, rows = -(-tile // _PATCH[0]), -(-tile // _PATCH[1])
+  best = None
+  for across in range(1, min(cols, _LANES) + 1):
+    nbx = -(-cols // across)
+    nby = -(-rows // min(rows, _LANES // across))
+    bw = _PATCH[0] * -(-cols // nbx)
+    bh = _PATCH[1] * -(-rows // nby)
+    perimeter = sum(2 * (min(bw, tile - x) + min(bh, tile - y))
+                    for x in range(0, tile, bw) for y in range(0, tile, bh))
+    key = (nbx * nby, perimeter, -bw)
+    if best is None or key < best[0]:
+      best = (key, (bw, bh, nbx * nby))
+  return best[1]
+
+
+def band_rects(tile: int, plan: tuple) -> list:
+  """The pixels of each band of `plan` inside the tile, in the kernel's
+  band order: (x_start, x_end, y_start, y_end), ends exclusive."""
+  bw, bh, _ = plan
+  return [(x, min(x + bw, tile), y, min(y + bh, tile))
+          for y in range(0, tile, bh) for x in range(0, tile, bw)]
+
+
+def _edge_misses(coeffs: torch.Tensor, rect: tuple, e: int):
+  """[B, n_tiles, K] bool: edge function e of each slot is negative at all
+  four corner pixel centres of the pixels ``rect`` (x_start, x_end,
+  y_start, y_end; ends exclusive), evaluated as the kernel does,
+  ``(a*px + b*py) + c`` in float32 (each product and sum rounded)."""
+  x0, x1, y0, y1 = rect
+  a, b, c = (coeffs[:, :, 3 * e + i] for i in range(3))
+  out = [a * (x + 0.5) + b * (y + 0.5) + c < 0
+         for x in (x0, x1 - 1) for y in (y0, y1 - 1)]
+  return out[0] & out[1] & out[2] & out[3]
+
+
+def live_slots(coeffs: torch.Tensor, tile: int, plan: tuple):
+  """The slots each band's cull keeps, [B, n_tiles, bands, K] bool: those
+  none of whose three edge functions is negative at all four corner pixel
+  centres of the band.  ``.sum(-1)`` counts the slots a band
+  rasterizes."""
+  return torch.stack([~(_edge_misses(coeffs, r, 0) |
+                        _edge_misses(coeffs, r, 1) |
+                        _edge_misses(coeffs, r, 2))
+                      for r in band_rects(tile, plan)], 2)
+
+
+def loaded_chunks(coeffs: torch.Tensor, tile: int, plan: tuple):
+  """The chunks of 32 slots (slots 32c .. 32c+31) each band loads whole,
+  [B, n_tiles, bands, ceil(K / 32)] bool: those that hold a slot whose
+  first edge function is not negative at all four corner pixel centres of
+  the band (the cull's first term).  The kernel reads the first edge
+  (rows 0-2) of every slot and all 13 rows of only these chunks; every
+  slot ``live_slots`` keeps lies in one of them."""
+  reach = torch.stack([~_edge_misses(coeffs, r, 0)
+                       for r in band_rects(tile, plan)], 2)
+  K = reach.shape[-1]
+  reach = torch.nn.functional.pad(reach, (0, -K % _LANES))
+  return reach.unflatten(-1, (-1, _LANES)).any(-1)
+
+
 def kernel_limits(tile: int) -> str:
-  """The CUDA kernel's path for a tile side: 'patch' (one 4x2-pixel patch
-  per lane of a warp: sides 4, 8, 12 and 16) or 'general' (every other side
-  of at least one pixel); raises on a side under one pixel.  (Any slot
-  count K is taken: slots are read 32 at a time.)"""
+  """The CUDA kernel's path for a tile side: 'patch' (one band of 4x2-pixel
+  patches, one per lane, that fills the tile: sides 4, 8, 12 and 16) or
+  'general' (every other side of at least one pixel: the bands of
+  ``subtile_plan``, each culled on its own corners, pixels past the tile's
+  edge masked); raises on a side under one pixel.  (Any slot count K is
+  taken: slots are read 32 at a time.)"""
   if tile < 1:
     raise ValueError(f'raster_tiles: tile={tile}: a tile side is at least '
                      'one pixel')
-  if tile % _PATCH[0] == 0 and tile <= _MAX_PATCH_TILE:
+  if _plan(tile) == (tile, tile, 1):
     return 'patch'
   return 'general'
 
@@ -126,6 +211,7 @@ def raster_tiles(coeffs: torch.Tensor, tile: int, sky_packed: float):
   lib = build.load_kernels()
   B, n_tiles, _, K = coeffs.shape
   npx = tile * tile
+  band_w, band_h, bands = subtile_plan(tile)
   izbuf = torch.empty((B, n_tiles, npx), dtype=torch.float32,
                       device=coeffs.device)
   cbuf = torch.empty_like(izbuf)
@@ -133,8 +219,8 @@ def raster_tiles(coeffs: torch.Tensor, tile: int, sky_packed: float):
   with torch.cuda.device(coeffs.device):
     err = lib.raster_tiles_f32(
         ctypes.c_void_p(coeffs.data_ptr()), ctypes.c_void_p(izbuf.data_ptr()),
-        ctypes.c_void_p(cbuf.data_ptr()), B * n_tiles, K, tile,
-        ctypes.c_float(sky_packed), ctypes.c_void_p(stream))
+        ctypes.c_void_p(cbuf.data_ptr()), B * n_tiles, K, tile, band_w,
+        band_h, bands, ctypes.c_float(sky_packed), ctypes.c_void_p(stream))
   if err != 0:
     raise RuntimeError('raster_tiles launch failed: ' +
                        lib.geeco_cuda_error_string(err).decode())

@@ -105,9 +105,10 @@ def build_all(libraries) -> None:
   last_build_seconds = time.perf_counter() - t0
 
 
-def raster_library() -> tuple:
-  """(path, nvcc arguments) of the rasterizer's library."""
-  return _library('raster_tiles.cu')
+def raster_library(defines: tuple = ()) -> tuple:
+  """(path, nvcc arguments) of the rasterizer's library; `defines` adds
+  macros (``RASTER_PROFILE=1``: chip_smoke.py --raster-phases)."""
+  return _library('raster_tiles.cu', tuple(defines))
 
 
 def library_path() -> str:
@@ -132,8 +133,8 @@ def load_kernels() -> ctypes.CDLL:
   build_all([(out, args)])
   lib = ctypes.CDLL(out)
   vp, ci = ctypes.c_void_p, ctypes.c_int
-  lib.raster_tiles_f32.argtypes = [vp, vp, vp, ci, ci, ci, ctypes.c_float,
-                                   vp]
+  lib.raster_tiles_f32.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                                   ctypes.c_float, vp]
   lib.raster_tiles_f32.restype = ci
   lib.geeco_cuda_error_string.argtypes = [ci]
   lib.geeco_cuda_error_string.restype = ctypes.c_char_p

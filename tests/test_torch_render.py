@@ -215,8 +215,8 @@ def test_kernel_limits_takes_patchable_tiles(tile):
 
 @pytest.mark.parametrize('tile', [1, 2, 6, 10, 18, 20, 32])
 def test_kernel_limits_general_path(tile):
-  """Every other side takes the kernel's general path (pixels strided over
-  the lanes); the twin takes it too."""
+  """Every other side takes the kernel's general path (the bands of
+  ``subtile_plan``); the twin takes it too."""
   assert RK.kernel_limits(tile) == 'general'
   coeffs = torch.zeros((1, 2, 13, 3))
   iz, c = RK.raster_tiles(coeffs, tile, 5.0)

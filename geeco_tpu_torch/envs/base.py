@@ -68,6 +68,7 @@ from ..physics import kinematics as K
 from ..physics.solver import METHODS
 from ..physics.step import Stepper, build_stepper, check_unroll
 from ..render.rasterizer import Renderer, build_renderer
+from ..utils import profiling
 from ..utils.device import resolve_device
 from . import spawn
 
@@ -469,6 +470,10 @@ class GeecoEnv:
     RobotEnv.step clips before _set_action); the reference expert's
     P-gain relies on this saturation.
     """
+    with profiling.span('env.step'):
+      return self._step(es, action)
+
+  def _step(self, es: EnvState, action: torch.Tensor) -> EnvState:
     m = self.model
     action = torch.clamp(action.to(self.device, torch.float32), -1.0, 1.0)
     pos_ctrl = action[:, :3] * 0.05

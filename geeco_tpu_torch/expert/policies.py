@@ -20,6 +20,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from ..envs.base import EnvState, GeecoEnv
+from ..utils import profiling
 
 # pick & place constants (gym_pickplace.py:140-151)
 OFFSET_HEIGHT_PRE_GRASP = 0.05
@@ -190,8 +191,14 @@ def pushing_expert(env: GeecoEnv):
 
 
 def make_expert(env: GeecoEnv):
-  return pushing_expert(env) if env.task == 'pushing' \
+  step_fn = pushing_expert(env) if env.task == 'pushing' \
       else pickplace_expert(env)
+
+  def expert(es: EnvState, xs: ExpertState):
+    with profiling.span('expert'):
+      return step_fn(es, xs)
+
+  return expert
 
 
 # ---------------------------------------------------------------------------

@@ -42,6 +42,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel import mesh as PM
+from ..utils import profiling
 from ..utils.device import resolve_device
 from .e2evmc import conv_precision, init_lstm_carry, make_model
 from .params import E2EVMCConfig
@@ -141,15 +142,17 @@ def _apply_update(ts: TrainState, loss: torch.Tensor, config: E2EVMCConfig,
                   mesh: Optional[PM.Mesh] = None) -> torch.Tensor:
   """Backward, (all-reduce), clip, Adam step; returns the loss with the L2
   term."""
-  if config.l2_regularizer > 0:
-    loss = loss + config.l2_regularizer * _l2(ts.model)
-  ts.optimizer.zero_grad(set_to_none=True)
-  with conv_precision(ts.model.enc_obs.dtype):
-    loss.backward()
-  if mesh is not None and mesh.size > 1:
-    _all_reduce_mean_grads(ts.model, mesh)
-  _clip_by_global_norm(ts.model)
-  ts.optimizer.step()
+  with profiling.span('train.backward'):
+    if config.l2_regularizer > 0:
+      loss = loss + config.l2_regularizer * _l2(ts.model)
+    ts.optimizer.zero_grad(set_to_none=True)
+    with conv_precision(ts.model.enc_obs.dtype):
+      loss.backward()
+    if mesh is not None and mesh.size > 1:
+      _all_reduce_mean_grads(ts.model, mesh)
+  with profiling.span('train.update'):
+    _clip_by_global_norm(ts.model)
+    ts.optimizer.step()
   return loss
 
 
@@ -569,8 +572,10 @@ def make_episode_train_fns(config: E2EVMCConfig, goal_conditioned: bool,
     return _loss_all(ep, batch)
 
   def train_step(ts: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
-    batch = _materialize_frames(batch)
-    loss, parts = _forward_loss(ts.model, batch)
+    with profiling.span('train.rerender'):
+      batch = _materialize_frames(batch)
+    with profiling.span('train.forward'):
+      loss, parts = _forward_loss(ts.model, batch)
     loss = _apply_update(ts, loss, config, mesh)
     metrics = {k: v.detach() for k, v in dict(parts, loss=loss).items()}
     return ts.replace(step=ts.step + 1), _mean_over_ranks(metrics, mesh)

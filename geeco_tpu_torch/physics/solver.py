@@ -34,6 +34,7 @@ import torch
 
 from ..core import math as gm
 from ..core.model import FREE, MESH, Model, State, make_state
+from ..utils import profiling
 from . import collision as C
 from . import dynamics as D
 from . import kinematics as K
@@ -679,6 +680,9 @@ def solve(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
   eq_lo, eq_hi = order['eq']
   nI = eq_lo                                       # inequality row count
   nE = eq_hi - eq_lo
+  if profiling.on():
+    profiling.count('contact_rows.iterated', B * nI)
+    profiling.count_device('contact_rows.active', con.active[:, :nI].sum())
   con_active = con.active[:, :Kc].to(X.dtype)
   lim_active = con.active[:, lo_lim:hi_lim].to(X.dtype)
 

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import numpy as np
 
 from ..core.model import Kin, Model, State
+from ..utils import profiling
 from . import collision as C
 from . import dynamics as D
 from . import kinematics as K
@@ -56,14 +57,18 @@ class Stepper(NamedTuple):
                  ) -> tuple[State, C.Contacts]:
     model = self.model
     dt = model.opt.timestep
-    smooth = D.smooth_dynamics(model, state, self.anc_mask, dt,
-                               mass_inverse=mass_inverse)
+    with profiling.span('physics.smooth'):
+      smooth = D.smooth_dynamics(model, state, self.anc_mask, dt,
+                                 mass_inverse=mass_inverse)
     if contacts is None:
-      contacts = C.collide(model, smooth.kin)
-    con = S.make_constraints(model, self.cs, smooth, contacts, state,
-                             self.anc_mask, hysteresis=hysteresis)
-    f, qacc = S.solve(model, self.cs, smooth, con, state.efc_force,
-                      iterations=solver_iterations, method=solver_method)
+      with profiling.span('physics.collide'):
+        contacts = C.collide(model, smooth.kin)
+    with profiling.span('physics.constraints'):
+      con = S.make_constraints(model, self.cs, smooth, contacts, state,
+                               self.anc_mask, hysteresis=hysteresis)
+    with profiling.span('physics.solve'):
+      f, qacc = S.solve(model, self.cs, smooth, con, state.efc_force,
+                        iterations=solver_iterations, method=solver_method)
     qvel = state.qvel + dt * qacc
     qpos = K.integrate_qpos(model, state.qpos, qvel, dt)
     return state.replace(qpos=qpos, qvel=qvel, time=state.time + dt,

@@ -48,6 +48,7 @@ import torch
 from ..core import math as gm
 from ..core.mjcf import Assets
 from ..core.model import CAPSULE, Kin, Model
+from ..utils import profiling
 from . import raster_kernel
 from .scene import RenderScene, build_render_scene
 
@@ -99,7 +100,8 @@ class Renderer:
     rects): the reference's TextureModder background randomisation.  The
     texels only colour the triangles, so the raster kernel is the same.
     """
-    return _render(self, kin, geom_rgba, textures)
+    with profiling.span('render'):
+      return _render(self, kin, geom_rgba, textures)
 
   def const(self, name: str, value=None) -> torch.Tensor:
     """A RenderScene array (or ``value``, an array derived from the scene)

@@ -8,7 +8,6 @@ import concurrent.futures
 import functools
 import json
 import os
-import time
 
 from tests.conftest import reference_xml
 import jax
@@ -226,24 +225,6 @@ def test_unknown_renderer_option_raises_type_error():
 
 
 # ------------------------------------------------------------- profiling
-
-
-def test_step_timer(tmp_path):
-  """tests/test_utils.py's expectations of the JAX package's StepTimer."""
-  jsonl = str(tmp_path / 't.jsonl')
-  timer = profiling.StepTimer('unit', window=4, jsonl_path=jsonl)
-  for _ in range(6):
-    with timer:
-      time.sleep(0.002)
-  s = timer.stats()
-  assert set(s) == {'mean_s', 'p50_s', 'p95_s', 'rate_hz'}
-  assert 0.001 < s['mean_s'] < 0.2 and len(timer.times) == 4
-  assert 'Hz' in timer.report()
-  timer.close()
-  lines = [json.loads(l) for l in open(jsonl).read().strip().splitlines()]
-  assert [l['n'] for l in lines] == [1, 2, 3, 4, 5, 6]
-  assert all(l['name'] == 'unit' and l['dt'] > 0 for l in lines)
-  assert profiling.StepTimer('empty').report() == 'empty: no samples'
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):

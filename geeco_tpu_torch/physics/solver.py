@@ -22,7 +22,8 @@ only: their row blocks are the quota groups, ``block_ids``), and
 ``'pallas'``, which runs the PSD iteration as one fused kernel per substep
 (``solver_pallas.psd_solve``) when the rows form 4 contact groups (ngrp=4,
 no rolling rows), and the plain ``'psd'`` iteration otherwise, as the JAX
-package does.
+package does.  On the card the other methods' iterations replay one CUDA
+graph per shape (``_solve_rows``).
 """
 
 from __future__ import annotations
@@ -514,7 +515,8 @@ def _step(num: torch.Tensor, den: torch.Tensor, floor: float = 1e-12,
 
 def _iterate(Aop, project, f0: torch.Tensor, b: torch.Tensor,
              precond: torch.Tensor, iterations: int, method: str = 'psd',
-             bid: Optional[torch.Tensor] = None) -> torch.Tensor:
+             bid: Optional[torch.Tensor] = None,
+             nblocks: int = 0) -> torch.Tensor:
   """Projected iteration on min 1/2 fᵀAf + bᵀf s.t. cone, for B envs.
 
   A Python loop where the JAX package scans.  Methods:
@@ -528,8 +530,10 @@ def _iterate(Aop, project, f0: torch.Tensor, b: torch.Tensor,
           pair, one operator application an iteration.
     apgd  Nesterov-accelerated projected gradient with adaptive restart.
   Block variants (``bid`` [nI] int64, the row -> block map of
-  ``block_ids``): a step size per island of rows, so a rank change on one
-  island's rows does not move another island's forces.
+  ``block_ids``, with ``nblocks`` blocks, a host int as in the JAX package:
+  reading it off ``bid`` would synchronize): a step size per island of
+  rows, so a rank change on one island's rows does not move another
+  island's forces.
     psd_block  per-block exact steps composed into one direction, then a
                global exact line search along it (three applications).
     bb_block   per-block Barzilai-Borwein steps (one application).
@@ -541,8 +545,10 @@ def _iterate(Aop, project, f0: torch.Tensor, b: torch.Tensor,
     if bid is None:
       raise ValueError(f"{method!r} requires quota contact selection "
                        "(constraint_static(select_mode='quota'))")
-    onehot = (bid[:, None] == torch.arange(int(bid.max()) + 1,
-                                           device=bid.device)).to(f0.dtype)
+    if nblocks < 1:
+      raise ValueError(f'{method!r} needs nblocks, the block count of bid')
+    onehot = (bid[:, None] == torch.arange(nblocks, device=bid.device)
+              ).to(f0.dtype)
 
     def seg(x):                                    # [B, nI] -> [B, nblocks]
       return (x[..., None] * onehot).sum(-2)
@@ -626,6 +632,160 @@ def _iterate(Aop, project, f0: torch.Tensor, b: torch.Tensor,
   raise ValueError(f'unknown solver method {method!r}')
 
 
+class _Rows(NamedTuple):
+  """The iterated rows' static layout (``_row_order``): ``Kc`` selected
+  contacts in ``ngrp`` groups of rows, the joint-limit rows
+  [lim_lo, lim_hi)."""
+  Kc: int
+  ngrp: int
+  lim_lo: int
+  lim_hi: int
+
+
+def _mv(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+  return torch.bmm(A, v[..., None])[..., 0]        # [B, m, n] @ [B, n]
+
+
+def _apply(f: torch.Tensor, J, X, R, J_E=None, A_IE=None, A_EE_inv=None):
+  """The iterated operator: J X f + R f (X = M⁻¹Jᵀ); with the weld rows'
+  operands, less their Schur complement A_IE A_EE⁻¹ J_E X f."""
+  u = _mv(X, f)
+  if J_E is None:
+    return _mv(J, u) + R * f
+  return _mv(J, u) + R * f - _mv(A_IE, _mv(A_EE_inv, _mv(J_E, u)))
+
+
+def _project(f: torch.Tensor, rows: _Rows, mu_t, mu_tor, mu_roll,
+             con_active, lim_active) -> torch.Tensor:
+  """Each selected contact's rows onto its friction cone (elliptic
+  tangents, boxed torsion and rolling), the limit rows onto f >= 0, the
+  inactive rows to 0; rows past the limits pass."""
+  Kc, lo_lim, hi_lim = rows.Kc, rows.lim_lo, rows.lim_hi
+  cols = []
+  if Kc:
+    fn = torch.clamp(f[:, 0:Kc], min=0.0) * con_active
+    ft1 = f[:, Kc:2 * Kc]
+    ft2 = f[:, 2 * Kc:3 * Kc]
+    ftor = f[:, 3 * Kc:4 * Kc]
+    t_norm = torch.sqrt(ft1 * ft1 + ft2 * ft2 + 1e-18)
+    scale = torch.clamp(mu_t * fn / t_norm, max=1.0)
+    lim_tor = mu_tor * fn
+    cols = [fn, ft1 * scale * con_active, ft2 * scale * con_active,
+            torch.maximum(torch.minimum(ftor, lim_tor), -lim_tor) *
+            con_active]
+    if rows.ngrp == 6:
+      lim_r = mu_roll * fn
+      for g in (4, 5):
+        fr = f[:, g * Kc:(g + 1) * Kc]
+        cols.append(torch.maximum(torch.minimum(fr, lim_r), -lim_r) *
+                    con_active)
+  cols.append(f[:, rows.ngrp * Kc:lo_lim])
+  if hi_lim > lo_lim:
+    cols.append(torch.clamp(f[:, lo_lim:hi_lim], min=0.0) * lim_active)
+  cols.append(f[:, hi_lim:])
+  return torch.cat(cols, 1)
+
+
+def _buffer_like(t: torch.Tensor) -> torch.Tensor:
+  """An uninitialised tensor with ``t``'s sizes, strides and storage
+  offset: a kernel handed it takes the path it takes on ``t`` (a matrix
+  product's transposes and alignment follow the layout)."""
+  if t.numel() == 0:
+    return torch.empty_like(t)
+  n = t.storage_offset() + 1 + sum((size - 1) * stride for size, stride in
+                                   zip(t.shape, t.stride()))
+  return t.new_empty(n).as_strided(t.shape, t.stride(), t.storage_offset())
+
+
+class _Graph:
+  """``fn`` captured once as a CUDA graph over static copies of its first
+  inputs; a call copies its inputs in, replays and returns a copy of the
+  output, which no later replay overwrites.  Both run on the current card,
+  which has to be the inputs' card."""
+
+  def __init__(self, fn, inputs):
+    self.inputs = [_buffer_like(t).copy_(t) for t in inputs]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):      # lazy initialisation, not captured
+      fn(*self.inputs)
+    torch.cuda.current_stream().wait_stream(side)
+    self.graph = torch.cuda.CUDAGraph()
+    # on a stream of this card: torch's default capture stream belongs to
+    # the card current at the process's first capture
+    with torch.cuda.graph(self.graph, stream=side):
+      self.output = fn(*self.inputs)
+
+  def __call__(self, inputs) -> torch.Tensor:
+    for buf, t in zip(self.inputs, inputs):
+      buf.copy_(t)
+    self.graph.replay()
+    return self.output.clone()
+
+
+# one captured iteration per key (``_solve_rows``), for the process, used
+# by one thread at a time.  Nothing is evicted: a key keeps its graph's
+# private pool (one iteration's intermediates) and static copies of its
+# inputs, J and X above all, ~0.2 GB at 256 envs of pad2-cube2 (786 rows,
+# nv=39; the device's peak 2.47 -> 2.68 GB on an H100).  A process that
+# steps several batch sizes, methods or matmul precisions keeps one each.
+_graphs: dict = {}
+
+
+def _graphable(tensors) -> bool:
+  """Whether the iteration can replay a graph: every tensor on one card,
+  none that autograd tracks, and that card's stream not capturing already
+  (a caller capturing its own graph records the plain loop into it)."""
+  dev = tensors[0].device
+  if dev.type != 'cuda' or any(t.device != dev or t.requires_grad
+                               for t in tensors):
+    return False
+  with torch.cuda.device(dev):
+    return not torch.cuda.is_current_stream_capturing()
+
+
+def _solve_rows(method: str, iterations: int, rows: _Rows, nblocks: int,
+                ops, b, precond, f0, cone, bid=None) -> torch.Tensor:
+  """The projected iteration (``_iterate`` over the operator's operands
+  ``ops`` (``_apply``) and the projection's ``cone`` (``_project``)): on
+  the card the replay of one CUDA graph per key, captured at the key's
+  first call, elsewhere the loop of small kernels; the same kernels on the
+  same operands either way.  Counts ``solver.iterations`` and, of those,
+  ``solver.graphed_iterations``."""
+
+  def iterate(ops, b, precond, f0, cone, bid):
+    return _iterate(lambda f: _apply(f, *ops),
+                    lambda f: _project(f, rows, *cone), f0, b, precond,
+                    iterations, method, bid, nblocks)
+
+  tensors = (*ops, b, precond, f0, *cone) + (() if bid is None else (bid,))
+  graphed = _graphable(tensors)
+  profiling.count('solver.iterations', iterations)
+  profiling.count('solver.graphed_iterations', iterations if graphed else 0)
+  if not graphed:
+    return iterate(ops, b, precond, f0, cone, bid)
+  # what fixes a captured iteration: the method, iteration and row counts,
+  # the matmul precision, each input's device, dtype, sizes (B, nv, nE),
+  # strides and offset
+  key = (method, iterations, rows, nblocks,
+         torch.backends.cuda.matmul.allow_tf32,
+         tuple((t.device, t.dtype, tuple(t.shape), t.stride(),
+                t.storage_offset()) for t in tensors))
+  n = len(ops)
+
+  def flat(*t):                                    # ``tensors``' layout
+    return iterate(t[:n], t[n], t[n + 1], t[n + 2], t[n + 3:n + 8],
+                   None if bid is None else t[n + 8])
+
+  # the capture's streams and the replay belong to the inputs' card, which
+  # need not be the current one
+  with torch.cuda.device(b.device):
+    graph = _graphs.get(key)
+    if graph is None:
+      graph = _graphs[key] = _Graph(flat, tensors)
+    return graph(tensors)
+
+
 def solve(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
           con: Constraints, warmstart: torch.Tensor | None,
           iterations: int = 60, method: str = 'psd'):
@@ -636,7 +796,10 @@ def solve(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
   no cone projection) and only the inequality rows are iterated.
 
   Every method but ``'pallas'`` iterates in PyTorch, one small kernel per
-  operation (``_iterate``).  ``method='pallas'`` runs the whole iteration
+  operation (``_iterate``); on the card, outside autograd and outside a
+  caller's own capture, those kernels run as the replay of one CUDA graph
+  per shape and method (``_solve_rows``), which saves the host ~60
+  launches an iteration.  ``method='pallas'`` runs the whole iteration
   as one fused kernel launch (``solver_pallas.psd_solve``: the CUDA kernel
   on the card, its plain twin on the CPU), with the TPU kernel's operator
   form; it needs ngrp=4, and at ngrp=6 (rolling rows) it runs the
@@ -655,7 +818,7 @@ def solve(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
   B, ne_sel = con.J.shape[0], con.J.shape[1]
   if ne_sel == 0:
     return smooth.qacc_smooth.new_zeros((B, cs.ne)), smooth.qacc_smooth
-  bid = None
+  bid, nblocks = None, 0
   if method in BLOCK_METHODS:
     bid_np = block_ids(cs)
     if bid_np is None:
@@ -663,6 +826,7 @@ def solve(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
                        "(constraint_static(select_mode='quota'))")
     quotas = tuple(k for _, k in cs.quota_sel)
     bid = model.const(f'cs.block_ids.{cs.ngrp}.{cs.nlim}.{quotas}', bid_np)
+    nblocks = int(bid_np.max()) + 1 if bid_np.size else 1
   it_method = 'psd' if method == 'pallas' else method
 
   JT = con.J.transpose(1, 2)                                   # [B, nv, ne]
@@ -685,40 +849,14 @@ def solve(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
     profiling.count_device('contact_rows.active', con.active[:, :nI].sum())
   con_active = con.active[:, :Kc].to(X.dtype)
   lim_active = con.active[:, lo_lim:hi_lim].to(X.dtype)
-
-  def project(f):
-    cols = []
-    if Kc:
-      fn = torch.clamp(f[:, 0:Kc], min=0.0) * con_active
-      ft1 = f[:, Kc:2 * Kc]
-      ft2 = f[:, 2 * Kc:3 * Kc]
-      ftor = f[:, 3 * Kc:4 * Kc]
-      t_norm = torch.sqrt(ft1 * ft1 + ft2 * ft2 + 1e-18)
-      scale = torch.clamp(con.mu_t * fn / t_norm, max=1.0)
-      lim_tor = con.mu_tor * fn
-      cols = [fn, ft1 * scale * con_active, ft2 * scale * con_active,
-              torch.maximum(torch.minimum(ftor, lim_tor), -lim_tor) *
-              con_active]
-      if cs.ngrp == 6:
-        lim_r = con.mu_roll * fn
-        for g in (4, 5):
-          fr = f[:, g * Kc:(g + 1) * Kc]
-          cols.append(torch.maximum(torch.minimum(fr, lim_r), -lim_r) *
-                      con_active)
-    cols.append(f[:, cs.ngrp * Kc:lo_lim])
-    if hi_lim > lo_lim:
-      cols.append(torch.clamp(f[:, lo_lim:hi_lim], min=0.0) * lim_active)
-    cols.append(f[:, hi_lim:])
-    return torch.cat(cols, 1)
+  rows = _Rows(Kc, cs.ngrp, lo_lim, hi_lim)
+  cone = (con.mu_t, con.mu_tor, con.mu_roll, con_active, lim_active)
 
   if warmstart is None:
     f0 = X.new_zeros((B, ne_sel))
   else:
     f0 = gather_warmstart(cs, con, warmstart)
-  f0 = project(f0)
-
-  def mv(A, v):                                    # [B, m, n] @ [B, n]
-    return torch.bmm(A, v[..., None])[..., 0]
+  f0 = _project(f0, rows, *cone)
 
   def fused_solve(J, X_, A_IE, EEinv, R_, b_, precond, f0_):
     """The iteration in one kernel launch (the plain twin on the CPU)."""
@@ -737,33 +875,25 @@ def solve(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
     A_IE = torch.bmm(J_I, X_E)                                 # [B, nI, nE]
     Z = torch.bmm(A_EE_inv, A_IE.transpose(1, 2))              # [B, nE, nI]
     diag_red = diagA[:, :nI] + R_I - torch.einsum('zie,zei->zi', A_IE, Z)
-    b_red = b_I - mv(A_IE, mv(A_EE_inv, b_E))
+    b_red = b_I - _mv(A_IE, _mv(A_EE_inv, b_E))
     precond = 1.0 / torch.clamp(diag_red, min=1e-12)
-
-    def A_red(f):
-      u = mv(X_I, f)
-      return mv(J_I, u) + R_I * f - mv(A_IE, mv(A_EE_inv, mv(J_E, u)))
-
     if fused:
       fI = fused_solve(J_I, X_I, A_IE, A_EE_inv, R_I, b_red, precond,
                        f0[:, :nI])
     else:
-      fI = _iterate(A_red, project, f0[:, :nI], b_red, precond, iterations,
-                    it_method, bid)
-    fE = -mv(A_EE_inv, b_E + mv(A_IE.transpose(1, 2), fI))
+      fI = _solve_rows(it_method, iterations, rows, nblocks,
+                       (J_I, X_I, R_I, J_E, A_IE, A_EE_inv), b_red, precond,
+                       f0[:, :nI], cone, bid)
+    fE = -_mv(A_EE_inv, b_E + _mv(A_IE.transpose(1, 2), fI))
     f = torch.cat([fI, fE], 1)
   else:
     precond = 1.0 / (diagA + R + 1e-12)
-
-    def A_full(f):
-      return mv(con.J, mv(X, f)) + R * f
-
     if fused:
       f = fused_solve(con.J, X, X.new_zeros((B, ne_sel, 0)),
                       X.new_zeros((B, 0, 0)), R, b, precond, f0)
     else:
-      f = _iterate(A_full, project, f0, b, precond, iterations, it_method,
-                   bid)
+      f = _solve_rows(it_method, iterations, rows, nblocks, (con.J, X, R),
+                      b, precond, f0, cone, bid)
 
-  qacc = smooth.qacc_smooth + mv(X, f)
+  qacc = smooth.qacc_smooth + _mv(X, f)
   return scatter_forces(cs, con, f), qacc

@@ -141,7 +141,8 @@ def test_iterate_matches(method):
       lambda v: torch.bmm(tA, v[..., None])[..., 0],
       lambda f: torch.cat([torch.clamp(f[:, :K], min=0.0), f[:, K:]], 1),
       torch.as_tensor(f0), torch.as_tensor(b), torch.as_tensor(precond), 30,
-      method, torch.as_tensor(bid) if block else None)
+      method, torch.as_tensor(bid) if block else None,
+      nblocks=int(bid.max()) + 1 if block else 0)
   np.testing.assert_allclose(got.numpy(), np.asarray(ref), **ITER_TOL)
   assert (got[:, :K] >= 0).all()
   # the iteration moved: the start is no fixed point
@@ -227,3 +228,15 @@ def test_hysteresis_substep_matches():
   assert set(late.tolist()) <= sel[1]
   plain = ts.substep(tstart, 60, 'psd')
   assert not torch.equal(plain.qvel, got.qvel)
+
+
+@pytest.mark.parametrize('method', TS.BLOCK_METHODS)
+def test_block_methods_need_the_block_count(method):
+  """``bid`` without ``nblocks`` raises on the host, before a zero-column
+  one-hot could index out of range on the card."""
+  A, b, precond, f0, bid, _ = _operator(13)
+  args = (lambda v: v, lambda f: f, torch.as_tensor(f0), torch.as_tensor(b),
+          torch.as_tensor(precond), 2, method, torch.as_tensor(bid))
+  with pytest.raises(ValueError, match='nblocks'):
+    TS._iterate(*args)
+  assert TS._iterate(*args, nblocks=int(bid.max()) + 1).shape == f0.shape

@@ -10,10 +10,16 @@ The policy state mirrors the predictor (src/models/e2evmc/predictor.py:
 127-200): a window_size frame buffer padded with the first frame, the LSTM
 carry persisted across steps, argmax -> {-1, 0, 1} gripper command.
 
-``step_textures`` put a background frame a step on the camera-facing
-wall.  ``evaluate_batched(mesh=...)`` runs this rank's shard of the batch
-(one process per device, ``parallel/mesh.py``) and gathers the metrics in
-global env order.
+``Rollout`` is a rollout of the batch one control step a call, with the
+metrics aggregated over its steps; ``evaluate_batched`` drives one to its
+end.  ``step_textures`` put a background frame a step on the
+camera-facing wall.  ``evaluate_batched(mesh=...)`` runs this rank's shard
+of the batch (one process per device, ``parallel/mesh.py``) and gathers
+the metrics in global env order.
+
+Traced (``utils/profiling.py``): the span ``closed_loop.policy`` around
+the policy step (ring buffer, forward, action) and the counter
+``policy.windows``, the windows it encodes (B a step).
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 
 from ..envs.base import EnvState, GeecoEnv
 from ..parallel import mesh as PM
+from ..utils import profiling
 from .e2evmc import E2EVMC, init_lstm_carry
 from .params import E2EVMCConfig
 
@@ -70,6 +77,11 @@ def make_closed_loop(env: Optional[GeecoEnv], config: E2EVMCConfig,
   def policy_step(model: E2EVMC, ps: PolicyState, obs_frame: torch.Tensor,
                   jnt_state: torch.Tensor, tgt_frame: torch.Tensor):
     """obs_frame [B, H, W, C] in [0, 1], jnt_state [B, 7] -> action [B, 4]."""
+    with profiling.span('closed_loop.policy'):
+      profiling.count('policy.windows', obs_frame.shape[0])
+      return _policy_step(model, ps, obs_frame, jnt_state, tgt_frame)
+
+  def _policy_step(model, ps, obs_frame, jnt_state, tgt_frame):
     # ring buffer with first-frame padding (predictor.py:192-200)
     started = ps.started.view(-1, 1, 1, 1, 1)
     frames = torch.where(
@@ -144,60 +156,64 @@ def synth_target_frames(env: GeecoEnv, config: E2EVMCConfig,
   return obs
 
 
-def evaluate_batched(env: GeecoEnv, config: E2EVMCConfig, model: E2EVMC,
-                     goal_conditioned: bool, batch: int,
-                     generator: Optional[torch.Generator] = None,
-                     tgt_frames: Optional[torch.Tensor] = None,
-                     n_steps: int = 200, es0: Optional[EnvState] = None,
-                     step_textures=None, carry_mode: Optional[str] = None,
-                     mesh=None, collect_frames: int = 0):
-  """Reset (``env.reset_random(batch, generator)``, or ``es0``) and a
-  closed-loop rollout of ``n_steps`` control steps; returns the per-env
-  metrics [B] each.
+class Rollout:
+  """A closed-loop rollout of a batch of envs, one control step a call.
 
-  ``step_textures`` ([n_steps, R, R, 3] or None): the background frame
-  of each step.  collect_frames=V > 0 additionally copies the first V
-  envs' frames to the host every step and returns (metrics, frames
-  [n_steps, V, H, W, 3] uint8), for eval videos.
-
-  ``mesh`` (``parallel.mesh.Mesh``): this rank runs its rows of the
-  ``batch`` envs (``reset_random(..., rows=)``; ``es0`` and ``tgt_frames``,
-  when given, are already this rank's shard, as ``shard_env_batch`` cuts
-  them) and every rank returns the metrics, and frames, of all ``batch``
-  envs in global order.
+  Built, it resets (``env.reset_random(batch, generator, rows=rows)``, or
+  takes ``es0``), makes the goal frames (``synth_target_frames``, unless
+  ``tgt_frames`` are given; zeros for an unconditional model) and the
+  policy state; each ``step`` runs one closed-loop control step of the
+  batch (render, policy, ``env.step``, the eval metrics) and folds its
+  metrics into ``agg`` (per-env [B] each).  ``collect_frames``=V > 0 also
+  copies, each step, the frames of the first V envs of the whole batch
+  that are this rank's (``rows``) to the host, into ``frames``.
   """
-  env.setup()
-  step_fn = make_closed_loop(env, config, goal_conditioned, carry_mode)
-  rows = None if mesh is None else mesh.rows(batch)
-  es = es0 if es0 is not None else env.reset_random(batch, generator,
-                                                    rows=rows)
-  B = es.task_goal.shape[0]
-  dev = env.device
-  if tgt_frames is None:
-    if goal_conditioned:
-      tgt_frames = synth_target_frames(env, config, es)
-    else:
-      tgt_frames = torch.zeros((B, config.img_height, config.img_width,
-                                config.img_channels), device=dev)
-  # the first collect_frames envs of the whole batch that are this rank's
-  first = 0 if rows is None else rows.start
-  n_frames = max(0, min(collect_frames - first, B))
-  ps = init_policy_state(config, B, dev)
-  z, full = torch.zeros(B, device=dev), lambda v: torch.full((B,), v,
-                                                             device=dev)
-  agg: Dict[str, torch.Tensor] = {
-      'obj_vicinity': z, 'grasp_success': z, 'min_goal_dist': full(1e3),
-      'max_goal_dist': z, 'final_goal_dist': z, 'task_success': z,
-      # triage extras: where in grasp->transport->place does it fail?
-      'steps_grasped': z, 'max_obj_z': z, 'drop_goal_dist': full(-1.0),
-      'last_grasp': z,
-  }
-  frames = [] if collect_frames > 0 else None
-  for t in range(n_steps):
-    tex = step_textures[t] if step_textures is not None else None
-    es, ps, m, rgb = step_fn(model, es, ps, tgt_frames, tex)
-    if frames is not None:
-      frames.append(rgb[:n_frames].cpu().numpy())
+
+  def __init__(self, env: GeecoEnv, config: E2EVMCConfig, model: E2EVMC,
+               goal_conditioned: bool, batch: int,
+               generator: Optional[torch.Generator] = None,
+               tgt_frames: Optional[torch.Tensor] = None,
+               es0: Optional[EnvState] = None,
+               carry_mode: Optional[str] = None, rows=None,
+               collect_frames: int = 0):
+    env.setup()
+    self.model = model
+    self.step_fn = make_closed_loop(env, config, goal_conditioned,
+                                    carry_mode)
+    es = es0 if es0 is not None else env.reset_random(batch, generator,
+                                                      rows=rows)
+    B = es.task_goal.shape[0]
+    dev = env.device
+    if tgt_frames is None:
+      if goal_conditioned:
+        tgt_frames = synth_target_frames(env, config, es)
+      else:
+        tgt_frames = torch.zeros((B, config.img_height, config.img_width,
+                                  config.img_channels), device=dev)
+    self.es, self.tgt_frames = es, tgt_frames
+    first = 0 if rows is None else rows.start
+    self.n_frames = max(0, min(collect_frames - first, B))
+    self.ps = init_policy_state(config, B, dev)
+    z, full = torch.zeros(B, device=dev), lambda v: torch.full((B,), v,
+                                                               device=dev)
+    self.agg: Dict[str, torch.Tensor] = {
+        'obj_vicinity': z, 'grasp_success': z, 'min_goal_dist': full(1e3),
+        'max_goal_dist': z, 'final_goal_dist': z, 'task_success': z,
+        # triage extras: where in grasp->transport->place does it fail?
+        'steps_grasped': z, 'max_obj_z': z, 'drop_goal_dist': full(-1.0),
+        'last_grasp': z,
+    }
+    self.frames: Optional[list] = [] if collect_frames > 0 else None
+
+  def step(self, textures=None) -> torch.Tensor:
+    """One control step; ``textures``: its background frame ([R, R, 3] or
+    one per env) or None.  Returns the frame it rendered, RGB uint8
+    [B, H, W, 3]."""
+    self.es, self.ps, m, rgb = self.step_fn(self.model, self.es, self.ps,
+                                            self.tgt_frames, textures)
+    if self.frames is not None:
+      self.frames.append(rgb[:self.n_frames].cpu().numpy())
+    agg = self.agg
     agg['obj_vicinity'] = torch.maximum(agg['obj_vicinity'],
                                         m['obj_vicinity'])
     agg['grasp_success'] = torch.maximum(agg['grasp_success'],
@@ -215,6 +231,38 @@ def evaluate_batched(env: GeecoEnv, config: E2EVMCConfig, model: E2EVMC,
     agg['drop_goal_dist'] = torch.where(dropped, m['goal_dist'],
                                         agg['drop_goal_dist'])
     agg['last_grasp'] = m['grasp_success']
+    return rgb
+
+
+def evaluate_batched(env: GeecoEnv, config: E2EVMCConfig, model: E2EVMC,
+                     goal_conditioned: bool, batch: int,
+                     generator: Optional[torch.Generator] = None,
+                     tgt_frames: Optional[torch.Tensor] = None,
+                     n_steps: int = 200, es0: Optional[EnvState] = None,
+                     step_textures=None, carry_mode: Optional[str] = None,
+                     mesh=None, collect_frames: int = 0):
+  """Reset (``env.reset_random(batch, generator)``, or ``es0``) and a
+  closed-loop rollout of ``n_steps`` control steps (``Rollout``); returns
+  the per-env metrics [B] each.
+
+  ``step_textures`` ([n_steps, R, R, 3] or None): the background frame
+  of each step.  collect_frames=V > 0 additionally copies the first V
+  envs' frames to the host every step and returns (metrics, frames
+  [n_steps, V, H, W, 3] uint8), for eval videos.
+
+  ``mesh`` (``parallel.mesh.Mesh``): this rank runs its rows of the
+  ``batch`` envs (``reset_random(..., rows=)``; ``es0`` and ``tgt_frames``,
+  when given, are already this rank's shard, as ``shard_env_batch`` cuts
+  them) and every rank returns the metrics, and frames, of all ``batch``
+  envs in global order.
+  """
+  rollout = Rollout(env, config, model, goal_conditioned, batch, generator,
+                    tgt_frames, es0, carry_mode,
+                    None if mesh is None else mesh.rows(batch),
+                    collect_frames)
+  for t in range(n_steps):
+    rollout.step(step_textures[t] if step_textures is not None else None)
+  agg, frames = rollout.agg, rollout.frames
   if frames is not None:
     frames = np.stack(frames)                   # [n_steps, n_frames, ...]
   if mesh is not None:

@@ -59,7 +59,10 @@ Phases; any failure exits non-zero:
      its sums in other orders are each held against the float64 twin,
      env by env
   7. slice 2: the expert's 100-step episodes at B=64, with the count of
-     PSD-kernel launches (one per substep), env-steps/s and task success;
+     PSD-kernel launches (one per substep: the episode replays the chains
+     of CUDA graphs a shorter episode captured, so the wrapper launches
+     nothing itself, and a control step's device trace holds one kernel a
+     substep), env-steps/s and task success;
      the PSD kernel's time, also per cluster size at B=64 and B=1; one
      profiled control step
   8. fidelity of slice 2: the whole MuJoCo pick replay through the slice-2
@@ -113,7 +116,8 @@ Phases; any failure exits non-zero:
      nut-cone at B=64: control steps of step + render (env-steps/s, one
      raster launch a render), one profiled control step (launches per
      substep, device time), a control step of each pallas env (one PSD
-     launch a substep) and the PSD kernel's time at those shapes
+     kernel a substep in its device trace) and the PSD kernel's time at
+     those shapes
   14. the renderer's options on slice 1's settled state at B=64, in this
      process beside the replays: the production render takes the
      hierarchical path and launches the raster kernel once; backend='jnp'
@@ -1301,7 +1305,8 @@ def scene_replay(which):
   """Phase 13's replays (``--replay-only nutcone|clutter4``): the MuJoCo
   fixture through the scene's production env (nut-cone: psd_block with
   quota selection; clutter4: psd with the top-192) at B=1, counting the
-  solves of each method."""
+  calls of solve by method (on the card a chain's warm-up and capture
+  call it; its replays run what was captured)."""
   from geeco_tpu_torch.envs.base import make_env
   from geeco_tpu_torch.physics import solver as S
   shapes, fixture, moved_limit = REPLAYS[which]
@@ -1388,6 +1393,42 @@ def capture_solve(env, es, SP):
     env.stepper.substep(es.phys, env.solver_iterations, 'pallas')
   check(len(calls) == 1, f'{len(calls)} fused solves in one substep')
   return calls[0]
+
+
+def twin_substep(env, phys, SP):
+  """One substep of env from phys with the PSD kernel's plain twin in its
+  place: eager, since an open SP.capture() block keeps the substep off its
+  chain of CUDA graphs, whose replay would run the kernel captured."""
+  real = SP.psd_solve
+  SP.psd_solve = SP.psd_solve_reference
+  try:
+    with SP.capture():
+      return env.stepper.substep(phys, env.solver_iterations, 'pallas')
+  finally:
+    SP.psd_solve = real
+
+
+def psd_kernels(fn, want: int) -> int:
+  """The PSD kernels fn() runs on the card, counted in a device trace (which
+  holds each kernel of a CUDA graph's replay; SP.psd_solve.launches counts
+  only the wrapper's calls).  A trace now and then loses records (152 of a
+  replayed control step's 54,431 device events in 1 of 10 traces, torch
+  2.11 on the H100), which lowers a count and never raises it: the count
+  is the largest of up to three traces of fn(), stopping at ``want``."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  best = -1
+  for _ in range(3):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      fn()
+      torch.cuda.synchronize()
+    best = max(best, sum(e.device_type() == DeviceType.CUDA and
+                         'psd_solve_kernel' in e.name()
+                         for e in prof.profiler.kineto_results.events()))
+    if best == want:
+      break
+  return best
 
 
 def reordered(ops, gen=None):
@@ -1716,12 +1757,7 @@ def k2_scene_checks(SP, dev):
     err, _ = within(f_k, SP.psd_solve_reference(**ops),
                     label=f'psd:{shapes} forces', **FORCE_TOL)
     sub_k = env.stepper.substep(es.phys, env.solver_iterations, 'pallas')
-    real = SP.psd_solve
-    SP.psd_solve = SP.psd_solve_reference   # the substep through the twin
-    try:
-      sub_r = env.stepper.substep(es.phys, env.solver_iterations, 'pallas')
-    finally:
-      SP.psd_solve = real
+    sub_r = twin_substep(env, es.phys, SP)
     within(sub_k.qvel, sub_r.qvel, label=f'psd:{shapes} substep qvel',
            **QVEL_TOL)
     out[shapes] = (env, es, ops, err)
@@ -1854,14 +1890,14 @@ def time_k2_scenes(k2_scenes, SP, card, dev):
   operands against its twin and its bound.  Returns (launches by path,
   times by shape)."""
   paths, shapes_out = {}, {}
+  zeros = torch.zeros(ENVS, 4, device=dev)
   for shapes, (env, es, ops, _) in k2_scenes.items():
-    SP.psd_solve.launches = 0
-    es = env.step(es, torch.zeros(ENVS, 4, device=dev))
-    torch.cuda.synchronize()
-    paths[f'{shapes} pallas'] = SP.psd_solve.launches
-    check(SP.psd_solve.launches == env.n_substeps,
-          f'{shapes}: {SP.psd_solve.launches} PSD launches in a control '
-          f'step of {env.n_substeps} substeps')
+    es = env.step(es, zeros)           # its chains captured
+    paths[f'{shapes} pallas'] = psd_kernels(lambda: env.step(es, zeros),
+                                            env.n_substeps)
+    check(paths[f'{shapes} pallas'] == env.n_substeps,
+          f'{shapes}: {paths[f"{shapes} pallas"]} PSD kernels in the device '
+          f'trace of a control step of {env.n_substeps} substeps')
     ms = cuda_ms(lambda: SP.psd_solve(**ops), 30, queued=True)
     plain_ms = cuda_ms(lambda: SP.psd_solve_reference(**ops), 3)
     bnd = bound(*psd_work(ops))
@@ -2233,7 +2269,8 @@ def main():
     drift = replay(make_env('pad2-cube2', device='cuda', rolling=False,
                             solver_method='pallas'), 'fidelity2')
     print(f'[fidelity2] drift {drift * 1000:.2f} mm through '
-          f'{SP.psd_solve.launches} PSD kernel launches (the JAX pallas '
+          f'{SP.psd_solve.launches} PSD wrapper calls (eager substeps, '
+          'warm-ups and captures: a replay calls none) (the JAX pallas '
           'path at rolling=False: 11.8 mm on this fixture, JAX on the CPU)',
           flush=True)
     check(SP.psd_solve.launches > 0, 'the replay did not reach the PSD '
@@ -2406,13 +2443,7 @@ def drive(card, children, profile_path):
                 label='psd:episode forces', **FORCE_TOL)
   psd_err = max(psd_err, e)
   sub_k = k2env.stepper.substep(es5.phys, k2env.solver_iterations, 'pallas')
-  real = SP.psd_solve
-  SP.psd_solve = SP.psd_solve_reference   # this one substep through the twin
-  try:
-    sub_r = k2env.stepper.substep(es5.phys, k2env.solver_iterations,
-                                  'pallas')
-  finally:
-    SP.psd_solve = real
+  sub_r = twin_substep(k2env, es5.phys, SP)
   within(sub_k.qvel, sub_r.qvel, label='psd:episode substep qvel',
          **QVEL_TOL)
   del es5, sub_k, sub_r
@@ -2534,7 +2565,9 @@ def drive(card, children, profile_path):
   cl_launches = closed_loop_run(env, es, cl_cfg, cl_model, card, rk)
   del env, es, cl_model
 
-  # ---- 7. slice 2: the expert's state-only episodes at B=64
+  # ---- 7. slice 2: the expert's state-only episodes at B=64, whose chains
+  # of CUDA graphs a 2-step episode from the same state captures first
+  EP.rollout(k2env, es2, EP.make_expert(k2env), length=2)
   rk.raster_tiles.launches = 0
   SP.psd_solve.launches = 0
   torch.cuda.synchronize()
@@ -2548,9 +2581,16 @@ def drive(card, children, profile_path):
         f'-> {ENVS * EPISODE / dt2:.2f} env-steps/s (state only) on '
         f'{card}; slice 1 in this run: {rate:.2f} env-steps/s (step + '
         'render)', flush=True)
-  print(f'[slice2] PSD kernel launches: {psd_launches} for {substeps} '
+  zeros = torch.zeros(ENVS, 4, device=dev)
+  step_kernels = psd_kernels(lambda: k2env.step(es2, zeros),
+                             k2env.n_substeps)
+  print(f'[slice2] PSD wrapper calls: {psd_launches} for {substeps} '
+        f'substeps (every substep a replay); PSD kernels in the device trace '
+        f'of a control step: {step_kernels} for {k2env.n_substeps} '
         f'substeps; raster launches: {rk.raster_tiles.launches}', flush=True)
-  check(psd_launches == substeps,
+  check(psd_launches == 0, 'the episode captured a chain of CUDA graphs '
+        'in its timed window')
+  check(step_kernels == k2env.n_substeps,
         'the PSD kernel did not run once per substep')
   check(bool(torch.isfinite(es2.phys.qpos).all()), 'non-finite qpos')
   m = k2env.eval_metrics(es2)
@@ -2613,8 +2653,8 @@ def drive(card, children, profile_path):
       'name': 'psd_solve', 'route': 'cuda',
       'source': 'geeco_tpu_torch/csrc/psd_solve.cu',
       'replaces': 'geeco_tpu/physics/solver_pallas.py:130',
-      'launches': psd_launches + sum(psd_paths.values()),
-      'launches_by_path': {'slice2': psd_launches, **psd_paths},
+      'launches': step_kernels + sum(psd_paths.values()),
+      'launches_by_path': {'slice2 step': step_kernels, **psd_paths},
       'max_abs_err': psd_err,
       'ms': psd_ms, 'plain_ms': psd_plain_ms, 'bound_ms': psd_bound[0],
       'bound_by': psd_bound[1], 'library_ms': None,

@@ -8,6 +8,8 @@ norm, rotating a vector from the local frame into the parent/world frame.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 # ----------------------------------------------------------------------------
@@ -16,7 +18,16 @@ import torch
 
 
 def _vec(values, like: torch.Tensor) -> torch.Tensor:
-  return torch.tensor(values, dtype=like.dtype, device=like.device)
+  """``values`` as a constant of ``like``'s dtype on its device, made once:
+  the hot path makes no host-to-device copy (which a CUDA graph's capture
+  cannot hold).  Callers only read it."""
+  return _const(tuple(values), like.dtype, like.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _const(values: tuple, dtype: torch.dtype, device: torch.device
+           ) -> torch.Tensor:
+  return torch.tensor(values, dtype=dtype, device=device)
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

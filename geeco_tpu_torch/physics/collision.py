@@ -75,7 +75,16 @@ _CORNERS = np.asarray(
 
 
 def _corners(like: torch.Tensor) -> torch.Tensor:
-  return torch.as_tensor(_CORNERS, device=like.device)
+  return _table('corners', like.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _table(name: str, device: torch.device) -> torch.Tensor:
+  """A static table of this module on ``device``, copied there once (a
+  copy from the host each call would stop a CUDA graph's capture).
+  Callers only read it."""
+  return torch.as_tensor({'corners': _CORNERS, 'box_faces': _BOX_FACES}[name],
+                         device=device)
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -563,7 +572,7 @@ def _box_as_hull(s, vmax: int):
   hv[:, :8] = _corners(s) * s[:, None, :]
   hvm = s.new_zeros((P, vmax))
   hvm[:, :8] = 1.0
-  faces = torch.as_tensor(_BOX_FACES, device=s.device).expand(P, 6, 3)
+  faces = _table('box_faces', s.device).expand(P, 6, 3)
   hf = torch.cat([faces, torch.cat([s, s], -1)[..., None]], -1)
   eye = torch.eye(3, device=s.device).expand(P, 3, 3)
   return hv, hvm, hf, s.new_ones((P, 6)), eye, s.new_ones((P, 3))

@@ -10,10 +10,11 @@ where (a_b, α_b) = d/dt (J_b v) at constant v come from one
 Joint damping is implicit in the integrator: the velocity update solves
 (M + h·diag(damping)), which the reference's 1e11 world-slide damping needs
 at h = 2 ms.  ``mass_inverse`` picks how, as in the JAX package: 'chol'
-factorizes it (``torch.linalg.cholesky``; the solver then applies the
-inverse with ``torch.cholesky_solve``), 'blockgj' forms the explicit
-inverse by block-diagonal Gauss-Jordan elimination (``physics/linalg.py``),
-which the solver applies as a matrix product.
+factorizes it (``torch.linalg.cholesky``, through ``linalg.cholesky``;
+the solver then applies the inverse with ``torch.cholesky_solve``),
+'blockgj' forms the explicit inverse by block-diagonal Gauss-Jordan
+elimination (``physics/linalg.py``), which the solver applies as a matrix
+product.
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ class Smooth(NamedTuple):
   chol: torch.Tensor | None  # [B, nv, nv] LOWER Cholesky factor of M_impl
   #                            ('chol')
   qfrc_smooth: torch.Tensor  # [B, nv] applied + bias-compensated force
-  qacc_smooth: torch.Tensor  # [B, nv] unconstrained acceleration
+  qacc_smooth: torch.Tensor  # [B, nv] unconstrained acceleration (None
+  #                            from ``smooth_factor`` under 'chol')
   minv: torch.Tensor | None = None  # [B, nv, nv] M_impl^-1 ('blockgj')
 
 
@@ -148,6 +150,24 @@ def smooth_dynamics(model: Model, state: State, anc_mask: np.ndarray,
   """``mass_inverse``: 'chol' (the Cholesky factor, solved lazily) or
   'blockgj' (the explicit inverse, ``linalg.spd_block_inverse``): the same
   math, set ``chol`` or ``minv``."""
+  smooth = smooth_factor(model, state, anc_mask, dt, mass_inverse)
+  if smooth.chol is None:
+    return smooth
+  return smooth._replace(qacc_smooth=mass_solve(smooth.chol,
+                                                smooth.qfrc_smooth))
+
+
+def mass_solve(chol: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+  """M_impl⁻¹ v for v [B, nv], through M_impl's factor ``chol``."""
+  return torch.cholesky_solve(v[..., None], chol)[..., 0]
+
+
+def smooth_factor(model: Model, state: State, anc_mask: np.ndarray,
+                  dt, mass_inverse: str = 'chol') -> Smooth:
+  """``smooth_dynamics`` up to M_impl's factor: under 'chol' its
+  ``qacc_smooth`` is None, for ``mass_solve`` to fill (the batched solve
+  allocates and synchronizes, so the substep's CUDA graphs end before
+  it); under 'blockgj' all of it."""
   if mass_inverse not in ('chol', 'blockgj'):
     raise ValueError(f'unknown mass_inverse {mass_inverse!r}')
   kin, info, jacp, jacr, qfrc_bias = kin_and_bias(model, state, anc_mask)
@@ -163,7 +183,6 @@ def smooth_dynamics(model: Model, state: State, anc_mask: np.ndarray,
     qacc = torch.einsum('zij,zj->zi', minv, qfrc_total)
     return Smooth(kin=kin, info=info, M=M, M_impl=M_impl, chol=None,
                   qfrc_smooth=qfrc_total, qacc_smooth=qacc, minv=minv)
-  chol = torch.linalg.cholesky(M_impl)
-  qacc = torch.cholesky_solve(qfrc_total[..., None], chol)[..., 0]
-  return Smooth(kin=kin, info=info, M=M, M_impl=M_impl, chol=chol,
-                qfrc_smooth=qfrc_total, qacc_smooth=qacc)
+  return Smooth(kin=kin, info=info, M=M, M_impl=M_impl,
+                chol=L.cholesky(M_impl), qfrc_smooth=qfrc_total,
+                qacc_smooth=None)

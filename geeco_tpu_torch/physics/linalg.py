@@ -19,8 +19,9 @@ J M^-1 J^T + R), where diagonal pivots are safe, as Cholesky assumes.
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -98,3 +99,46 @@ def _group_index(group: Tuple[Tuple[int, ...], ...], device: torch.device
   """The dof indices of equal-size blocks as one tensor on ``device``, made
   once (the step calls this every substep)."""
   return torch.as_tensor(group, dtype=torch.int64, device=device)
+
+
+# the device flag that ``cholesky`` and ``inv`` fold their failures into
+# inside ``faults_into``; None: they check on the host and raise
+_faults: Optional[torch.Tensor] = None
+
+
+@contextlib.contextmanager
+def faults_into(flag: torch.Tensor):
+  """Inside the block ``cholesky`` and ``inv`` leave their check to the
+  device: each or-s "some matrix failed" into ``flag`` (a bool scalar on
+  the card), with no synchronize.  For a CUDA graph's capture, where the
+  host cannot wait on a result; the flag then keeps what every replay
+  found."""
+  global _faults
+  prev, _faults = _faults, flag
+  try:
+    yield flag
+  finally:
+    _faults = prev
+
+
+def cholesky(A: torch.Tensor) -> torch.Tensor:
+  """The lower Cholesky factor of SPD ``A`` [..., n, n]:
+  ``torch.linalg.cholesky``, which raises where a factorization fails (a
+  synchronize); inside ``faults_into`` ``torch.linalg.cholesky_ex``, the
+  same factorization with the check left to the flag."""
+  if _faults is None:
+    return torch.linalg.cholesky(A)
+  L, info = torch.linalg.cholesky_ex(A)
+  _faults.logical_or_((info != 0).any())
+  return L
+
+
+def inv(A: torch.Tensor) -> torch.Tensor:
+  """The inverse of ``A`` [..., n, n]: ``torch.linalg.inv``, or inside
+  ``faults_into`` ``torch.linalg.inv_ex``, the same elimination with the
+  check left to the flag (as ``cholesky``)."""
+  if _faults is None:
+    return torch.linalg.inv(A)
+  Ainv, info = torch.linalg.inv_ex(A)
+  _faults.logical_or_((info != 0).any())
+  return Ainv

@@ -22,8 +22,9 @@ only: their row blocks are the quota groups, ``block_ids``), and
 ``'pallas'``, which runs the PSD iteration as one fused kernel per substep
 (``solver_pallas.psd_solve``) when the rows form 4 contact groups (ngrp=4,
 no rolling rows), and the plain ``'psd'`` iteration otherwise, as the JAX
-package does.  On the card the other methods' iterations replay one CUDA
-graph per shape (``_solve_rows``).
+package does.  On the card the other methods' iterations are recorded
+into the last of the substep's CUDA graphs (``physics/substep_graph.py``)
+and replay with it.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from ..utils import profiling
 from . import collision as C
 from . import dynamics as D
 from . import kinematics as K
+from . import linalg as L
 from . import solver_pallas as SP
 
 METHODS = ('psd', 'cg', 'bb', 'apgd', 'psd_block', 'bb_block', 'pallas')
@@ -686,109 +688,44 @@ def _project(f: torch.Tensor, rows: _Rows, mu_t, mu_tor, mu_roll,
   return torch.cat(cols, 1)
 
 
-def _buffer_like(t: torch.Tensor) -> torch.Tensor:
-  """An uninitialised tensor with ``t``'s sizes, strides and storage
-  offset: a kernel handed it takes the path it takes on ``t`` (a matrix
-  product's transposes and alignment follow the layout)."""
-  if t.numel() == 0:
-    return torch.empty_like(t)
-  n = t.storage_offset() + 1 + sum((size - 1) * stride for size, stride in
-                                   zip(t.shape, t.stride()))
-  return t.new_empty(n).as_strided(t.shape, t.stride(), t.storage_offset())
-
-
-class _Graph:
-  """``fn`` captured once as a CUDA graph over static copies of its first
-  inputs; a call copies its inputs in, replays and returns a copy of the
-  output, which no later replay overwrites.  Both run on the current card,
-  which has to be the inputs' card."""
-
-  def __init__(self, fn, inputs):
-    self.inputs = [_buffer_like(t).copy_(t) for t in inputs]
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):      # lazy initialisation, not captured
-      fn(*self.inputs)
-    torch.cuda.current_stream().wait_stream(side)
-    self.graph = torch.cuda.CUDAGraph()
-    # on a stream of this card: torch's default capture stream belongs to
-    # the card current at the process's first capture
-    with torch.cuda.graph(self.graph, stream=side):
-      self.output = fn(*self.inputs)
-
-  def __call__(self, inputs) -> torch.Tensor:
-    for buf, t in zip(self.inputs, inputs):
-      buf.copy_(t)
-    self.graph.replay()
-    return self.output.clone()
-
-
-# one captured iteration per key (``_solve_rows``), for the process, used
-# by one thread at a time.  Nothing is evicted: a key keeps its graph's
-# private pool (one iteration's intermediates) and static copies of its
-# inputs, J and X above all, ~0.2 GB at 256 envs of pad2-cube2 (786 rows,
-# nv=39; the device's peak 2.47 -> 2.68 GB on an H100).  A process that
-# steps several batch sizes, methods or matmul precisions keeps one each.
-_graphs: dict = {}
-
-
-def _graphable(tensors) -> bool:
-  """Whether the iteration can replay a graph: every tensor on one card,
-  none that autograd tracks, and that card's stream not capturing already
-  (a caller capturing its own graph records the plain loop into it)."""
-  dev = tensors[0].device
-  if dev.type != 'cuda' or any(t.device != dev or t.requires_grad
-                               for t in tensors):
-    return False
-  with torch.cuda.device(dev):
-    return not torch.cuda.is_current_stream_capturing()
+def _capturing(device: torch.device) -> bool:
+  """Whether the current stream of ``device``, a card, is capturing a
+  CUDA graph."""
+  with torch.cuda.device(device):
+    return torch.cuda.is_current_stream_capturing()
 
 
 def _solve_rows(method: str, iterations: int, rows: _Rows, nblocks: int,
                 ops, b, precond, f0, cone, bid=None) -> torch.Tensor:
   """The projected iteration (``_iterate`` over the operator's operands
-  ``ops`` (``_apply``) and the projection's ``cone`` (``_project``)): on
-  the card the replay of one CUDA graph per key, captured at the key's
-  first call, elsewhere the loop of small kernels; the same kernels on the
-  same operands either way.  Counts ``solver.iterations`` and, of those,
-  ``solver.graphed_iterations``."""
-
-  def iterate(ops, b, precond, f0, cone, bid):
-    return _iterate(lambda f: _apply(f, *ops),
-                    lambda f: _project(f, rows, *cone), f0, b, precond,
-                    iterations, method, bid, nblocks)
-
-  tensors = (*ops, b, precond, f0, *cone) + (() if bid is None else (bid,))
-  graphed = _graphable(tensors)
+  ``ops`` (``_apply``) and the projection's ``cone`` (``_project``)), a
+  loop of small kernels; on the card the substep's last CUDA graph records
+  it and replays it (``physics/substep_graph.py``).  Counts
+  ``solver.iterations`` and, of those, ``solver.graphed_iterations``: the
+  iterations recorded into a graph being captured, which run as its
+  replay."""
   profiling.count('solver.iterations', iterations)
-  profiling.count('solver.graphed_iterations', iterations if graphed else 0)
-  if not graphed:
-    return iterate(ops, b, precond, f0, cone, bid)
-  # what fixes a captured iteration: the method, iteration and row counts,
-  # the matmul precision, each input's device, dtype, sizes (B, nv, nE),
-  # strides and offset
-  key = (method, iterations, rows, nblocks,
-         torch.backends.cuda.matmul.allow_tf32,
-         tuple((t.device, t.dtype, tuple(t.shape), t.stride(),
-                t.storage_offset()) for t in tensors))
-  n = len(ops)
+  profiling.count('solver.graphed_iterations', iterations if (
+      b.device.type == 'cuda' and _capturing(b.device)) else 0)
+  return _iterate(lambda f: _apply(f, *ops),
+                  lambda f: _project(f, rows, *cone), f0, b, precond,
+                  iterations, method, bid, nblocks)
 
-  def flat(*t):                                    # ``tensors``' layout
-    return iterate(t[:n], t[n], t[n + 1], t[n + 2], t[n + 3:n + 8],
-                   None if bid is None else t[n + 8])
 
-  # the capture's streams and the replay belong to the inputs' card, which
-  # need not be the current one
-  with torch.cuda.device(b.device):
-    graph = _graphs.get(key)
-    if graph is None:
-      graph = _graphs[key] = _Graph(flat, tensors)
-    return graph(tensors)
+def minv_jt(smooth: D.Smooth, J: torch.Tensor) -> torch.Tensor:
+  """X = M_impl⁻¹ Jᵀ [B, nv, ne] for rows J [B, ne, nv], as ``smooth``
+  carries the inverse: through the factor (``torch.cholesky_solve``) or,
+  under 'blockgj', a product with the explicit inverse."""
+  JT = J.transpose(1, 2)
+  if smooth.minv is not None:
+    return torch.bmm(smooth.minv, JT)
+  return torch.cholesky_solve(JT, smooth.chol)
 
 
 def solve(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
-          con: Constraints, warmstart: torch.Tensor | None,
-          iterations: int = 60, method: str = 'psd'):
+          con: Constraints, X: torch.Tensor | None,
+          warmstart: torch.Tensor | None, iterations: int = 60,
+          method: str = 'psd'):
   """Projected-gradient solve with weld-equality elimination.
 
   The weld rows couple to the 1e11-damped world slides and dominate the
@@ -796,10 +733,10 @@ def solve(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
   no cone projection) and only the inequality rows are iterated.
 
   Every method but ``'pallas'`` iterates in PyTorch, one small kernel per
-  operation (``_iterate``); on the card, outside autograd and outside a
-  caller's own capture, those kernels run as the replay of one CUDA graph
-  per shape and method (``_solve_rows``), which saves the host ~60
-  launches an iteration.  ``method='pallas'`` runs the whole iteration
+  operation (``_iterate``); on the card those kernels are recorded into the
+  substep's last CUDA graph and replay with it (``_solve_rows``,
+  ``physics/substep_graph.py``), which saves the host ~60 launches an
+  iteration.  ``method='pallas'`` runs the whole iteration
   as one fused kernel launch (``solver_pallas.psd_solve``: the CUDA kernel
   on the card, its plain twin on the CPU), with the TPU kernel's operator
   form; it needs ngrp=4, and at ngrp=6 (rolling rows) it runs the
@@ -807,10 +744,13 @@ def solve(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
   selection.  M⁻¹ is applied as ``smooth`` carries it: the Cholesky factor
   (``torch.cholesky_solve``), or under ``mass_inverse='blockgj'`` the
   explicit inverse.  The weld Schur block is inverted by
-  ``torch.linalg.inv`` under both (the JAX package unrolls a Gauss-Jordan
-  inverse there, to avoid While loops on the TPU; taking that under
-  'chol' moves a noisy expert rollout 1.03e-4 from JAX's, past the env
-  tests' 1e-4).  Returns (f_full [B, ne], qacc [B, nv]).
+  ``torch.linalg.inv`` (``linalg.inv``) under both (the JAX package
+  unrolls a Gauss-Jordan inverse there, to avoid While loops on the TPU;
+  taking that under 'chol' moves a noisy expert rollout 1.03e-4 from
+  JAX's, past the env tests' 1e-4).  ``X`` is M⁻¹Jᵀ (``minv_jt``; None
+  where there are no rows), which the substep computes apart: under
+  'chol' it is MAGMA's batched solve, which no CUDA graph can hold.
+  Returns (f_full [B, ne], qacc [B, nv]).
   """
   if method not in METHODS:
     raise ValueError(f'unknown solver method {method!r}')
@@ -829,11 +769,6 @@ def solve(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
     nblocks = int(bid_np.max()) + 1 if bid_np.size else 1
   it_method = 'psd' if method == 'pallas' else method
 
-  JT = con.J.transpose(1, 2)                                   # [B, nv, ne]
-  if smooth.minv is not None:      # 'blockgj': the explicit inverse
-    X = torch.bmm(smooth.minv, JT)                             # M⁻¹ Jᵀ
-  else:
-    X = torch.cholesky_solve(JT, smooth.chol)
   diagA = torch.einsum('zev,zve->ze', con.J, X)
   R = (1.0 - con.d_imp) / con.d_imp * con.invweight
   b = torch.einsum('zev,zv->ze', con.J, smooth.qacc_smooth) - con.aref
@@ -844,8 +779,8 @@ def solve(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
   eq_lo, eq_hi = order['eq']
   nI = eq_lo                                       # inequality row count
   nE = eq_hi - eq_lo
+  profiling.count('contact_rows.iterated', B * nI)
   if profiling.on():
-    profiling.count('contact_rows.iterated', B * nI)
     profiling.count_device('contact_rows.active', con.active[:, :nI].sum())
   con_active = con.active[:, :Kc].to(X.dtype)
   lim_active = con.active[:, lo_lim:hi_lim].to(X.dtype)
@@ -871,7 +806,7 @@ def solve(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
     R_I, R_E = R[:, :nI], R[:, eq_lo:eq_hi]
     b_I, b_E = b[:, :nI], b[:, eq_lo:eq_hi]
     A_EE = torch.bmm(J_E, X_E) + torch.diag_embed(R_E)         # [B, nE, nE]
-    A_EE_inv = torch.linalg.inv(A_EE)            # the small SPD Schur block
+    A_EE_inv = L.inv(A_EE)                       # the small SPD Schur block
     A_IE = torch.bmm(J_I, X_E)                                 # [B, nI, nE]
     Z = torch.bmm(A_EE_inv, A_IE.transpose(1, 2))              # [B, nE, nI]
     diag_red = diagA[:, :nI] + R_I - torch.einsum('zie,zei->zi', A_IE, Z)

@@ -266,7 +266,9 @@ def psd_solve(J, X, A_IE, EEinv, R, b, precond, f0, mu_t, mu_tor, con_act,
 
   CUDA tensors: one launch of the kernel on the current stream, laid out by
   ``plan`` (``cluster`` forces its cluster size), counted in
-  ``psd_solve.launches``.  The kernel is built for these shapes at their
+  ``psd_solve.launches`` (by this call: inside a CUDA graph's capture the
+  launch is recorded, and the graph's replays run it uncounted; count
+  those in a device trace).  The kernel is built for these shapes at their
   first solve (nvcc, a few seconds) and kept.  Shapes that are resident in
   no cluster of four blocks run with J and X in device memory.  CPU
   tensors: the plain twin.
@@ -304,6 +306,12 @@ def psd_solve(J, X, A_IE, EEinv, R, b, precond, f0, mu_t, mu_tor, con_act,
 
 
 psd_solve.launches = 0
+
+
+def capturing_operands() -> bool:
+  """Whether a ``capture`` block is open: its caller wants the operands of
+  every solve, so each substep has to run the solve itself."""
+  return _captured is not None
 
 
 @contextlib.contextmanager

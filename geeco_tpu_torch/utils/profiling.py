@@ -29,6 +29,12 @@ one tracer for the hot paths:
     block and writes one Chrome-format trace of it (``chrome://tracing``,
     Perfetto) into ``log_dir``, the program's spans over the card's kernels
     and copies.
+  * ``recording()``: the host counts and device tallies made inside its
+    block are collected, not charged, whether the tracer is on or off: the
+    work of a CUDA graph's capture runs nothing, and its caller makes each
+    again at every replay.  Inside it ``on()`` reads True, so the graph
+    holds the work of every tally, whether the tracer is on at its
+    capture or not.
 
 The tracer is process-wide: one flag, one table and one stack of open
 spans, so spans are opened by one thread at a time.
@@ -74,11 +80,12 @@ _pool: List = []                                   # free CUDA events
 _stack: List['_Span'] = []                         # the open spans
 _syncs: Optional[dict] = None                      # what enable() replaced
 _events = False                                    # spans record events
+_recorded: Optional[list] = None                   # ``recording``'s counts
 
 
 def on() -> bool:
-  """Whether the tracer is on."""
-  return _on
+  """Whether the tracer is on, or a ``recording`` block open."""
+  return _on or _recorded is not None
 
 
 def _stat(name: str) -> _Stat:
@@ -148,7 +155,10 @@ def _charge(name: str, n) -> None:
 
 def count(name: str, n=1) -> None:
   """Add ``n`` to the host counter ``name``, charged to the innermost open
-  span."""
+  span (collected instead inside ``recording``)."""
+  if _recorded is not None:
+    _recorded.append((count, name, n))
+    return
   if not _on:
     return
   _charge(name, n)
@@ -156,7 +166,11 @@ def count(name: str, n=1) -> None:
 
 def count_device(name: str, tensor: torch.Tensor) -> None:
   """Add the scalar ``tensor`` to the device tally ``name`` of the
-  innermost open span, with no synchronize; read at ``snapshot``."""
+  innermost open span, with no synchronize; read at ``snapshot``
+  (collected instead inside ``recording``)."""
+  if _recorded is not None:
+    _recorded.append((count_device, name, tensor))
+    return
   if not _on:
     return
   key = (_stack[-1].name if _stack else '', name)
@@ -283,6 +297,19 @@ def snapshot() -> Dict:
     for k, v in s.counters.items():
       totals[k] += v
   return {'spans': spans, 'counters': dict(totals)}
+
+
+@contextlib.contextmanager
+def recording():
+  """Collect the host counts and device tallies made inside the block,
+  uncharged, as (``count`` or ``count_device``, name, value) triples (see
+  the module's docstring); yields the list."""
+  global _recorded
+  prev, _recorded = _recorded, []
+  try:
+    yield _recorded
+  finally:
+    _recorded = prev
 
 
 @contextlib.contextmanager

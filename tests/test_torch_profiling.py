@@ -111,6 +111,28 @@ def test_device_tallies_are_read_at_snapshot_and_reset_empties(tracer):
   assert profiling.snapshot() == EMPTY
 
 
+@pytest.mark.parametrize('on', [False, True])
+def test_recording_collects_counts_and_tallies_for_each_replay(on, tracer):
+  if on:
+    profiling.enable()
+  with profiling.span('solve'), profiling.recording() as made:
+    assert profiling.on()          # a capture holds every tally's work
+    profiling.count('rows', 4)
+    profiling.count_device('active', torch.tensor([True, False]).sum())
+  assert [(name, int(v)) for _, name, v in made] == [('rows', 4),
+                                                      ('active', 1)]
+  assert profiling.snapshot()['counters'] == {'syncs': 0}   # uncharged
+  assert profiling.on() == on
+  profiling.enable()
+  profiling.reset()
+  for _ in range(2):                # two replays
+    with profiling.span('solve'):
+      for fn, name, v in made:
+        fn(name, v)
+  snap = profiling.snapshot()
+  assert snap['spans']['solve']['counters'] == {'rows': 8, 'active': 2}
+
+
 def test_spans_are_record_function_ranges_of_a_profiler_session(tracer):
   from torch.profiler import ProfilerActivity, profile
 

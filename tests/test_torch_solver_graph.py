@@ -1,19 +1,18 @@
-"""The contact solver's projected iteration replayed as a CUDA graph
-(``geeco_tpu_torch/physics/solver.py`` ``_solve_rows``).
+"""The contact solver's projected iteration written over explicit tensors
+(``geeco_tpu_torch/physics/solver.py`` ``_solve_rows``), which the last of
+the substep's CUDA graphs records on the card
+(``physics/substep_graph.py``; its own tests are
+``tests/test_torch_substep_graph.py``).
 
-On the CPU the loop of small kernels runs, as it always has: no graph is
-made, ``solver.graphed_iterations`` reads 0 while ``solver.iterations``
-counts every iteration, and the iteration written over explicit tensors
-(``_solve_rows``) gives the forces of the closure-based solve kept below
-as ``_closure_solve`` bit for bit.
-
-On the card (skipped without one) the replays give the eager loop's forces,
-accelerations and states bit for bit for every iterated method, each batch
-size captures its own graph, a second solve leaves the first one's result
-as it was, inputs on a card other than the current one replay on theirs
-(with two cards or more), and a solve inside a caller's own capture, or
-one autograd tracks, runs the eager loop.  tests/conftest.py imports JAX, which the card
-lacks, so there the file runs without it:
+On the CPU the loop of small kernels runs: no chain of graphs is made,
+``solver.graphed_iterations`` reads 0 while ``solver.iterations`` counts
+every iteration, and the iteration gives the forces of the closure-based
+solve kept below as ``_closure_solve`` bit for bit.  An input that
+autograd tracks gets the loop, and gradients through it.  On the card
+(skipped without one) a solve inside a caller's capture records the loop
+into it, counts those iterations as graphed (they run as its replay) and
+gives the eager loop's forces.  tests/conftest.py imports JAX, which the
+card lacks, so there the file runs without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_solver_graph.py
 
@@ -34,6 +33,7 @@ from geeco_tpu_torch.envs.base import ASSET_ROOT, MODEL_XML
 from geeco_tpu_torch.physics import collision as C
 from geeco_tpu_torch.physics import dynamics as D
 from geeco_tpu_torch.physics import solver as S
+from geeco_tpu_torch.physics import substep_graph as SG
 from geeco_tpu_torch.physics.step import build_stepper
 from geeco_tpu_torch.utils import profiling
 
@@ -225,14 +225,6 @@ def card():
   return torch.device('cuda')
 
 
-def _graph_batches(method='psd', keys=None):
-  """The batch sizes B of the captured iterations of ``method`` (of
-  ``keys``, by default every key): B leads the sizes of each key's first
-  input."""
-  keys = S._graphs if keys is None else keys
-  return {inputs[0][2][0] for m, *_, inputs in keys if m == method}
-
-
 def _counts(snap):
   c = snap['counters']
   return c.get('solver.iterations'), c.get('solver.graphed_iterations')
@@ -250,7 +242,8 @@ def test_the_explicit_iteration_gives_the_closure_solves_forces(
   assert st.cs.ngrp == ngrp and 6 * st.cs.neq == nE
   smooth, con = _solve_inputs(st, state)
   assert con.active[:, :st.cs.ncon_sel].any()
-  f, qacc = S.solve(st.model, st.cs, smooth, con, state.efc_force)
+  f, qacc = S.solve(st.model, st.cs, smooth, con,
+                    S.minv_jt(smooth, con.J), state.efc_force)
   f_ref, qacc_ref = _closure_solve(st.model, st.cs, smooth, con,
                                    state.efc_force)
   assert torch.equal(f, f_ref) and torch.equal(qacc, qacc_ref)
@@ -261,8 +254,8 @@ def test_the_explicit_iteration_gives_the_closure_solves_forces(
 def test_every_method_gives_the_closure_solves_forces(method):
   st, state = _start('pad2-cube2', 2, select_mode='quota')
   smooth, con = _solve_inputs(st, state)
-  f, qacc = S.solve(st.model, st.cs, smooth, con, state.efc_force, 30,
-                    method)
+  f, qacc = S.solve(st.model, st.cs, smooth, con,
+                    S.minv_jt(smooth, con.J), state.efc_force, 30, method)
   f_ref, qacc_ref = _closure_solve(st.model, st.cs, smooth, con,
                                    state.efc_force, 30, method)
   assert torch.equal(f, f_ref) and torch.equal(qacc, qacc_ref)
@@ -270,7 +263,7 @@ def test_every_method_gives_the_closure_solves_forces(method):
 
 def test_on_the_cpu_the_eager_loop_runs_and_no_graph_is_made(tracer):
   st, state = _start('pad2-cube2', 2)
-  graphs = len(S._graphs)
+  chains = len(SG._chains)
   profiling.enable()
   st.step(state, n_substeps=2, solver_iterations=60)
   snap = profiling.snapshot()
@@ -278,7 +271,7 @@ def test_on_the_cpu_the_eager_loop_runs_and_no_graph_is_made(tracer):
   solve = snap['spans']['physics.solve']['counters']
   assert solve['solver.iterations'] == 120
   assert solve['solver.graphed_iterations'] == 0
-  assert len(S._graphs) == graphs
+  assert len(SG._chains) == chains
 
 
 def _random_rows(seed, device, B=4, K=8, nlim=2, nv=12, nE=6, ngrp=6):
@@ -316,11 +309,9 @@ def test_an_input_that_requires_grad_takes_the_eager_loop(device, tracer):
     pytest.skip('needs a CUDA card: the graph path runs only there')
   rows, ops, b, precond, f0, cone = _random_rows(3, device)
   b = b.clone().requires_grad_(True)
-  graphs = len(S._graphs)
   profiling.enable()
   f = S._solve_rows('psd', 20, rows, 0, ops, b, precond, f0, cone)
   assert _counts(profiling.snapshot()) == (20, 0)
-  assert len(S._graphs) == graphs
   assert f.requires_grad                    # autograd saw the iteration
   f.sum().backward()
   assert torch.isfinite(b.grad).all() and b.grad.abs().max() > 0
@@ -355,123 +346,24 @@ def test_where_the_cone_binds_the_explicit_iteration_matches_the_closures():
 # ----------------------------------------------------------------- the card
 
 
-def _record_solves(monkeypatch):
-  """Every (forces, qacc) that ``solve`` returns, in order."""
-  out, solve = [], S.solve
-
-  def recording(*a, **k):
-    r = solve(*a, **k)
-    out.append(tuple(t.clone() for t in r))
-    return r
-  monkeypatch.setattr(S, 'solve', recording)
-  return out
-
-
-def _control_step(monkeypatch, st, state, method, graphed):
-  """One control step (20 substeps of 60 iterations): the solves'
-  (forces, qacc) and the end state; ``graphed`` False holds the solver to
-  the eager loop."""
-  with monkeypatch.context() as mp:
-    if not graphed:
-      mp.setattr(S, '_graphable', lambda tensors: False)
-    solves = _record_solves(mp)
-    end = st.step(state, 20, 60, solver_method=method)
-    torch.cuda.synchronize()
-  return solves, end
-
-
-@pytest.mark.parametrize('method', METHODS)
-def test_replays_are_bit_equal_to_the_eager_loop(method, card, monkeypatch,
-                                                 tracer):
-  mode = 'quota' if method in S.BLOCK_METHODS else 'topk'
-  st, state = _start('pad2-cube2', 8, card, select_mode=mode)
-  eager, eager_end = _control_step(monkeypatch, st, state, method, False)
-  profiling.enable()
-  graphed, graphed_end = _control_step(monkeypatch, st, state, method, True)
-  assert _counts(profiling.snapshot()) == (20 * 60, 20 * 60)
-  assert len(graphed) == len(eager) == 20
-  for (f, qacc), (f_e, qacc_e) in zip(graphed, eager):
-    assert torch.equal(f, f_e) and torch.equal(qacc, qacc_e)
-  for name in ('qpos', 'qvel', 'efc_force'):
-    assert torch.equal(getattr(graphed_end, name),
-                       getattr(eager_end, name)), name
-  assert graphed_end.efc_force[:, :st.cs.ncon].abs().max() > 0
-
-
-def test_a_second_batch_size_captures_its_own_graph(card, monkeypatch):
-  for B in (8, 4):
-    st, state = _start('pad2-cube2', B, card)
-    eager, _ = _control_step(monkeypatch, st, state, 'psd', False)
-    before = set(S._graphs)
-    graphed, _ = _control_step(monkeypatch, st, state, 'psd', True)
-    for (f, qacc), (f_e, qacc_e) in zip(graphed, eager):
-      assert torch.equal(f, f_e) and torch.equal(qacc, qacc_e)
-  # B=4 came second: its key is new, and holds B
-  new = set(S._graphs) - before
-  assert new and _graph_batches(keys=new) == {4}
-  assert {8, 4} <= _graph_batches()
-
-
-def test_a_second_solve_leaves_the_first_result_unchanged(card, monkeypatch):
-  first = _random_rows(5, card)
-  second = _random_rows(6, card)
-  f1 = S._solve_rows('psd', 60, first[0], 0, *first[1:])
-  kept = f1.clone()
-  f2 = S._solve_rows('psd', 60, second[0], 0, *second[1:])
-  torch.cuda.synchronize()
-  assert torch.equal(f1, kept) and not torch.equal(f1, f2)
-  with monkeypatch.context() as mp:
-    mp.setattr(S, '_graphable', lambda tensors: False)
-    assert torch.equal(f1, S._solve_rows('psd', 60, first[0], 0,
-                                         *first[1:]))
-    assert torch.equal(f2, S._solve_rows('psd', 60, second[0], 0,
-                                         *second[1:]))
-
-
-def test_inputs_on_another_card_replay_there(card, monkeypatch, tracer):
-  if torch.cuda.device_count() < 2:
-    pytest.skip('needs two CUDA cards: inputs off the current one')
-  other = torch.device('cuda', (torch.cuda.current_device() + 1) %
-                       torch.cuda.device_count())
-  # a capture on the current card first, as a process that moved on to
-  # another card would have made
-  here = _random_rows(10, card, B=2)
-  S._solve_rows('psd', 60, here[0], 0, *here[1:])
-  first = _random_rows(11, other)
-  second = _random_rows(12, other)
-  with monkeypatch.context() as mp:
-    mp.setattr(S, '_graphable', lambda tensors: False)
-    want = [S._solve_rows('psd', 60, r[0], 0, *r[1:])
-            for r in (first, second)]
-  current = torch.cuda.current_device()
-  profiling.enable()
-  got = [S._solve_rows('psd', 60, r[0], 0, *r[1:]) for r in (first, second)]
-  torch.cuda.synchronize(other)
-  assert _counts(profiling.snapshot()) == (120, 120)
-  assert torch.cuda.current_device() == current
-  assert any(inputs[0][0] == other for *_, inputs in S._graphs)
-  for f, f_e in zip(got, want):
-    assert f.device == other and torch.equal(f, f_e)
-  assert not torch.equal(got[0], got[1])
-
-
-def test_a_solve_under_capture_takes_the_eager_loop(card, monkeypatch,
-                                                    tracer):
+def test_a_solve_under_capture_takes_the_eager_loop(card, tracer):
+  """The eager loop (``_solve_rows``' Python loop of small kernels, the
+  only one the solver has) is recorded into a caller's graph: its
+  iterations count as graphed, since they run as the graph's replay, and
+  the replay gives the loop's forces."""
   rows, ops, b, precond, f0, cone = _random_rows(7, card, B=3)
   args = ('bb', 40, rows, 0, ops, b, precond, f0, cone)
   side = torch.cuda.Stream()
   side.wait_stream(torch.cuda.current_stream())
-  with torch.cuda.stream(side), monkeypatch.context() as mp:
-    mp.setattr(S, '_graphable', lambda tensors: False)
+  with torch.cuda.stream(side):
     want = S._solve_rows(*args)         # the eager loop, and the warm-up
   torch.cuda.current_stream().wait_stream(side)
-  graphs = len(S._graphs)
   profiling.enable()
   g = torch.cuda.CUDAGraph()
   with torch.cuda.graph(g):
     got = S._solve_rows(*args)
-  assert _counts(profiling.snapshot()) == (40, 0)
-  assert len(S._graphs) == graphs
+  # the loop recorded into the caller's graph runs as its replay
+  assert _counts(profiling.snapshot()) == (40, 40)
   g.replay()
   torch.cuda.synchronize()
   assert torch.equal(got, want)

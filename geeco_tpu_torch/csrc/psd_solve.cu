@@ -83,7 +83,7 @@
 //    but no shape is refused that the kernel without staging took.
 //
 // Shared-memory layout: psd::make_plan, mirrored by solver_pallas._smem_bytes
-// (chip_smoke.py holds the two against each other).
+// (tests/test_torch_card_kernels.py holds the two against each other).
 //
 // Numerics: sums run in another order than the PyTorch twin
 // psd_solve_reference (lane-strided partial sums, shuffle trees, fused
@@ -104,7 +104,7 @@ namespace cg = cooperative_groups;
 #error "psd_solve.cu is built per shape: utils/build.py::load_psd sets PSD_*"
 #endif
 
-// Built with -DPSD_PROFILE (chip_smoke.py --psd-phases), thread 0 of block 0
+// Built with -DPSD_PROFILE (kernel_probe.py --psd-phases), thread 0 of block 0
 // counts the cycles of each phase of the loop and the kernel writes those
 // counts, not the forces, to out[0..kPhases).
 #ifdef PSD_PROFILE

@@ -152,7 +152,7 @@ __device__ __forceinline__ int stage_chunk(const float* __restrict__ src,
 }
 
 #ifdef RASTER_PROFILE
-// Built with -DRASTER_PROFILE (chip_smoke.py --raster-phases), lane 0 of
+// Built with -DRASTER_PROFILE (kernel_probe.py --raster-phases), lane 0 of
 // warp w writes one record to g_profile[w] after its slot loop: its SM and
 // the SM's clock (low 32 bits) at its start and at its end.
 // raster_profile_read copies the records of the last launch out.

@@ -308,19 +308,17 @@ def psd_solve(J, X, A_IE, EEinv, R, b, precond, f0, mu_t, mu_tor, con_act,
 psd_solve.launches = 0
 
 
-def capturing_operands() -> bool:
-  """Whether a ``capture`` block is open: its caller wants the operands of
-  every solve, so each substep has to run the solve itself."""
-  return _captured is not None
-
-
 @contextlib.contextmanager
 def capture():
   """Record the operands of every ``psd_solve`` call made inside the block.
 
   Yields a list that fills with one dict per call (the operand tensors by
   name, plus K, nlim and iterations), so a caller can hold the kernel
-  against its twin on the operands of a real substep.
+  against its twin on the operands of a real substep.  Only the solves
+  that run Python are recorded: eager substeps, and a chain's warm-up and
+  capture (``physics/substep_graph.py``).  A chain's replay runs the
+  kernel it captured and records nothing, so a caller that wants every
+  substep's operands patches ``substep_graph.engages`` to return False.
   """
   global _captured
   prev, _captured = _captured, []

@@ -5,11 +5,10 @@ the mass matrix, collide, make_constraints and the solve's set-up are
 thousands of small kernels, each launched by eager PyTorch.
 ``Stepper._substep_c`` (``physics/step.py``) hands a substep here where
 ``engages`` holds: every tensor it reads on one card, none that autograd
-tracks, that card's stream not capturing already, and no
-``solver_pallas.capture`` block open (its caller wants each solve's
-operands).  Everywhere else, the CPU included, the eager substep
-runs.  Each key (``key``: everything that fixes a capture) has one chain,
-captured at its first substep and replayed at every later one.  The chain
+tracks, and that card's stream not capturing already.  Everywhere else,
+the CPU included, the eager substep runs.  Each key (``key``: everything
+that fixes a capture) has one chain, captured at its first substep and
+replayed at every later one.  The chain
 runs the pieces of ``step.Substep`` in the order of its ``run``:
 
   segment  what                                             span
@@ -68,7 +67,6 @@ import torch
 from ..utils import profiling
 from . import linalg as L
 from . import solver as S
-from . import solver_pallas as SP
 
 MAX_CHAINS = 4
 
@@ -96,16 +94,16 @@ def _inputs(state, contacts) -> tuple:
 
 def engages(st, state, contacts) -> bool:
   """Whether this substep runs as its chain's replay: every tensor it
-  reads on one card, none that autograd tracks, that card's stream not
+  reads on one card, none that autograd tracks, and that card's stream not
   capturing already (a caller capturing its own graph records the eager
-  substep into it), and no ``solver_pallas.capture`` block open."""
+  substep into it)."""
   tensors = [st.model.body_pos] + [t for t in _inputs(state, contacts)
                                    if t is not None]
   dev = tensors[0].device
   if dev.type != 'cuda' or any(t.device != dev or t.requires_grad
                                for t in tensors):
     return False
-  return not S._capturing(dev) and not SP.capturing_operands()
+  return not S._capturing(dev)
 
 
 def key(sub, state, contacts) -> tuple:

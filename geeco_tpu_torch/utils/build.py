@@ -107,7 +107,7 @@ def build_all(libraries) -> None:
 
 def raster_library(defines: tuple = ()) -> tuple:
   """(path, nvcc arguments) of the rasterizer's library; `defines` adds
-  macros (``RASTER_PROFILE=1``: chip_smoke.py --raster-phases)."""
+  macros (``RASTER_PROFILE=1``: kernel_probe.py --raster-phases)."""
   return _library('raster_tiles.cu', tuple(defines))
 
 

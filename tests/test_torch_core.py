@@ -221,8 +221,13 @@ def test_port_sources_import_no_jax():
           if _IMPORT_RE.search(f.read()):
             offenders.append(os.path.relpath(path, REPO_ROOT))
   assert not offenders, offenders
-  with open(os.path.join(REPO_ROOT, 'chip_smoke.py')) as f:
-    assert not _IMPORT_RE.search(f.read())
+  card_files = [os.path.join('tests', fn)
+                for fn in sorted(os.listdir(os.path.join(REPO_ROOT, 'tests')))
+                if fn.startswith('test_torch_card_') and fn.endswith('.py')]
+  assert card_files
+  for path in ['kernel_probe.py'] + card_files:
+    with open(os.path.join(REPO_ROOT, path)) as f:
+      assert not _IMPORT_RE.search(f.read()), path
 
 
 def test_port_import_leaves_jax_out_of_sys_modules():

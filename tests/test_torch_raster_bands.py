@@ -5,8 +5,9 @@ The kernel (``csrc/raster_tiles.cu``) runs one warp per band of 4x2-pixel
 patches and drops the slots that cannot touch the band.  Here: the plan the
 wrapper hands the kernel covers every pixel of the tile exactly once with
 at most 32 lanes a warp, and dropping the slots ``live_slots`` culls for a
-band changes no pixel of that band in the plain twin.  ``chip_smoke.py``
-holds the kernel itself against the twin on the card.
+band changes no pixel of that band in the plain twin.
+``tests/test_torch_card_kernels.py`` holds the kernel itself against the
+twin on the card.
 """
 
 import numpy as np

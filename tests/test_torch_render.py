@@ -2,8 +2,9 @@
 binning and full frames of geeco_tpu_torch against the JAX package's Pallas
 path (``backend='pallas'``, interpret mode on the CPU), on the CPU.
 
-The CUDA kernel itself runs only on the card: ``chip_smoke.py`` holds it
-against ``raster_tiles_reference`` there.
+The CUDA kernel itself runs only on the card:
+``tests/test_torch_card_kernels.py`` holds it against
+``raster_tiles_reference`` there.
 """
 
 from tests.conftest import reference_xml

@@ -6,7 +6,7 @@ The JAX side runs as its own tests run it: ``backend='jnp'`` (flat
 binning) or ``'pallas'`` (the hierarchical path, its kernel in interpret
 mode).  The port's hierarchical path runs the raster kernel's plain twin on
 the CPU; the CUDA kernel at every tile side is held against the twin by
-``chip_smoke.py`` on the card.
+``tests/test_torch_card_kernels.py`` on the card.
 """
 
 import os

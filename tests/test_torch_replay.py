@@ -4,8 +4,8 @@ CPU, held to tests/test_replay_parity.py's bounds.
 
 Each replay is 100 production control steps at B=1 (minutes on the CPU),
 so all four run under ``-m slow`` only, as the JAX package's heavy
-replays do; chip_smoke.py replays pad2-cube2, clutter4 and nut-cone on the
-card in every run.
+replays do; tests/test_torch_card_replays.py replays pad2-cube2, clutter4
+and nut-cone on the card.
 """
 
 import os

@@ -6,7 +6,8 @@ reset_to, step, render) at 64x64 with settle_steps=2, on the CPU.
 
 The JAX env renders with ``backend='pallas'`` (interpret mode here), as in
 tests/test_torch_env.py.  The replays of the MuJoCo fixtures at full length
-run on the card (chip_smoke.py) and, for JAX, under ``-m slow``.
+run on the card (tests/test_torch_card_replays.py) and, for JAX, under
+``-m slow``.
 """
 
 import concurrent.futures

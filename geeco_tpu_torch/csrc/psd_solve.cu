@@ -1,21 +1,32 @@
 // Fused projected steepest-descent (PSD) contact solve for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel geeco_tpu/physics/solver_pallas.py
-// ::_run_pallas (body _kernel, math _psd_loop :84-114).  Same computation:
-// `iterations` steps of diagonally preconditioned projected steepest
-// descent with the exact step size on the inequality rows of the contact
-// dual, the weld rows already Schur-eliminated by the caller:
+// Runs the whole projected iteration of the contact dual in one launch, on
+// the inequality rows, the weld rows already Schur-eliminated by the caller:
 //
 //   g = Aop f + b;  d = precond*g;  alpha = (g.d)/(d.Aop d) if d.Aop d > 1e-12
-//   f <- project(f - alpha*d),  Aop v = J (X v) - A_IE (EEinv (A_IE^T v)) + R v
+//   f <- project(f - alpha*d)
 //
-// project: elliptic cone over 4 groups of K contact rows (fn >= 0, the
-// tangent pair clipped to the mu_t*fn disk, torsion clipped at mu_tor*fn,
-// masked by con_act), limit rows >= 0 masked by lim_act, padding rows 0.
+// in one of two forms, a constant of the build (PSD_FORM):
+//  * 0, the TPU kernel's (geeco_tpu/physics/solver_pallas.py::_run_pallas,
+//    body _kernel, math _psd_loop :84-114), which solver.solve's 'pallas'
+//    method runs at 4 contact row groups (namespace psd):
+//    Aop v = J (X v) - A_IE (EEinv (A_IE^T v)) + R v, f0 projected first;
+//  * 1, solver.solve's own 'psd' iteration (solver._iterate, _apply and
+//    _project), which solver._solve_rows runs on the card, its forces the
+//    eager loop's bit for bit (namespace psdx, at the end of the file):
+//    Aop v = (J u + R v) - A_IE (EEinv (J_E u)), u = X v, with 4 or 6 row
+//    groups (PSD_NGRP: the rolling rows), every sum in the order of the
+//    library routine the eager loop calls.
+//
+// Form 0 follows.  project: elliptic cone over 4 groups of K contact rows
+// (fn >= 0, the tangent pair clipped to the mu_t*fn disk, torsion clipped
+// at mu_tor*fn, masked by con_act), limit rows >= 0 masked by lim_act,
+// padding rows 0.
 //
 // Layout (env-major, contiguous float32): J [B][nI][nv], X [B][nv][nI],
 // A_IE [B][nI][nE], EEinv [B][nE][nE], R/b/precond/f0/out [B][nI],
-// mu_t/mu_tor/con_act [B][K], lim_act [B][2*nlim].  nE may be 0.
+// mu_t/mu_tor/con_act [B][K], lim_act [B][2*nlim].  nE may be 0.  (Form 1
+// adds mu_roll [B][K] and J_E [B][nE][nv], and reads J transposed.)
 //
 // What bounds it on this card.  The work is small (~4(nv+nE)nI FLOPs per
 // operator application, two per iteration) but it is a chain: 2*iterations
@@ -100,8 +111,15 @@ namespace cg = cooperative_groups;
 #if !defined(PSD_NI) || !defined(PSD_NV) || !defined(PSD_NE) ||        \
     !defined(PSD_K) || !defined(PSD_NLIM) || !defined(PSD_C) ||         \
     !defined(PSD_THREADS) || !defined(PSD_RESIDENT) ||                  \
-    !defined(PSD_JREG) || !defined(PSD_XREG)
+    !defined(PSD_JREG) || !defined(PSD_XREG) || !defined(PSD_FORM)
 #error "psd_solve.cu is built per shape: utils/build.py::load_psd sets PSD_*"
+#endif
+#if PSD_FORM == 1 &&                                                   \
+    (!defined(PSD_NGRP) || !defined(PSD_GU) || !defined(PSD_WU) ||     \
+     !defined(PSD_GJ) || !defined(PSD_WJ) || !defined(PSD_GW) ||       \
+     !defined(PSD_WW) || !defined(PSD_GZ) || !defined(PSD_WZ) ||       \
+     !defined(PSD_GA) || !defined(PSD_WA) || !defined(PSD_RW))
+#error "form 1 is built with its row groups and summation orders"
 #endif
 
 // Built with -DPSD_PROFILE (kernel_probe.py --psd-phases), thread 0 of block 0
@@ -554,6 +572,7 @@ __device__ void project(float* f, const float* d, float alpha,
   }
 }
 
+#if PSD_FORM == 0
 __global__ void __launch_bounds__(T)
 psd_solve_kernel(const float* __restrict__ J, const float* __restrict__ X,
                  const float* __restrict__ A_IE,
@@ -804,23 +823,428 @@ psd_solve_kernel(const float* __restrict__ J, const float* __restrict__ X,
   // no block leaves while another may still write into its shared memory
   if (C > 1) cluster_sync();
 }
+#endif
 
 }  // namespace psd
 
-// Bytes of dynamic shared memory one block needs.
-extern "C" int psd_solve_smem_bytes() { return 4 * psd::P.total; }
+#if PSD_FORM == 1
+// Form 1: solver.solve's 'psd' iteration, its forces the eager loop's bit
+// for bit (solver._solve_rows holds it to them at an operands' layout's
+// first solve, and raises where they differ).
+//
+// Why bit for bit.  At some steps of a production episode a control step
+// amplifies a float32 rounding of the solve to 1e-4 in qpos in most envs
+// (a qvel one ulp off does as much), so a solve that sums in any other
+// order leaves the eager step's state; the loop's own orders do not.
+//
+// One block holds one env, every row of it, with X, A_IE, J_E, EEinv and
+// the row vectors in shared memory; J, transposed, fills what shared
+// memory is left (19 of 39 dofs at pad2-cube2's shapes) and the rest is
+// read from device memory (a warp's rows read one line a dof).  Each
+// product of the loop is summed as the library routine the eager loop
+// calls (torch.bmm) sums it,
+// as solver_pallas.library_orders read it and PSD_G* / PSD_W* pass it: G
+// chains, chain g over the chunks g, g + G, .. of W terms, its first
+// product rounded and the rest fused, the G chain sums halved pairwise.
+// The two dot products are summed as torch's vectorized row reduction
+// sums a row (row_sum) with PSD_RW threads a row, which it takes by the
+// batch (on the H100: 128 below 8 rows, 64 below 16, 32 from 16 on).  Every elementwise operation is the eager loop's:
+// f - alpha*d as a product then a difference, the tangent norm by sqrtf,
+// the step size and the cone's scale by IEEE division.  Threads run the
+// rows (one each) and the chains of u = X v; there is no cluster: the
+// chains of u span every row.
+namespace psdx {
+using psd::nI;
+using psd::nv;
+using psd::nE;
+using psd::K;
+using psd::nlim;
+using psd::T;
+using psd::kFull;
+using psd::round4;
+constexpr int NG = PSD_NGRP;     // contact row groups: 4, or 6 (rolling)
+static_assert(NG == 4 || NG == 6, "4 contact row groups, or 6");
+static_assert(NG * K + 2 * nlim <= nI, "rows");
+constexpr int GU = PSD_GU, WU = PSD_WU;  // u = X v, over the nI rows
+constexpr int GJ = PSD_GJ, WJ = PSD_WJ;  // J u, over the nv dofs
+constexpr int GW = PSD_GW, WW = PSD_WW;  // w = J_E u, over the nv dofs
+constexpr int GZ = PSD_GZ, WZ = PSD_WZ;  // z = EEinv w, over the nE rows
+constexpr int GA = PSD_GA, WA = PSD_WA;  // A_IE z, over the nE rows
+constexpr int RW = PSD_RW;       // the threads of a row sum (row_sum)
+static_assert(RW >= 32 && RW <= T && (RW & (RW - 1)) == 0,
+              "a row sum's threads: whole warps of the block, a power of two");
+constexpr int nlp = round4(nI);
+static_assert(nE > 0, "form 1 has weld rows");
+static_assert((GU & (GU - 1)) == 0 && (GJ & (GJ - 1)) == 0 &&
+                  (GW & (GW - 1)) == 0 && (GZ & (GZ - 1)) == 0 &&
+                  (GA & (GA - 1)) == 0,
+              "chain sums are halved pairwise: powers of two");
 
-// Launch B envs on `stream`, C blocks of T threads each as one cluster;
-// returns the CUDA error (0 = launched).
+// Word offsets in dynamic shared memory; the first NJS dofs of Jᵀ fill
+// what the rest leaves of a block's shared memory.
+struct Plan {
+  int o_X, o_A, o_f, o_g, o_d, o_ad, o_R, o_b, o_pre, o_prod, o_je, o_ee,
+      o_u, o_up, o_w, o_z, o_mut, o_mur, o_mro, o_ca, o_la, o_red, o_rs, o_J,
+      njs, total;
+};
+
+__host__ __device__ constexpr Plan make_plan() {
+  Plan p = {};
+  int o = 0;
+  auto take = [&o](int n) { const int at = o; o += round4(n); return at; };
+  p.o_X = take(nv * nlp);   // X [nv][nlp]
+  p.o_A = take(nI * nE);    // A_IE [nI][nE]
+  p.o_f = take(nlp);
+  p.o_g = take(nlp);
+  p.o_d = take(nlp);
+  p.o_ad = take(nlp);
+  p.o_R = take(nlp);
+  p.o_b = take(nlp);
+  p.o_pre = take(nlp);
+  p.o_prod = take(nlp);     // the products a dot product sums
+  p.o_je = take(nE * nv);
+  p.o_ee = take(nE * nE);
+  p.o_u = take(nv);
+  p.o_up = take(GU * nv);   // the chains' sums of u
+  p.o_w = take(nE);
+  p.o_z = take(nE);
+  p.o_mut = take(K);
+  p.o_mur = take(K);
+  p.o_mro = take(K);
+  p.o_ca = take(K);
+  p.o_la = take(2 * nlim);
+  p.o_red = take(2);
+  p.o_rs = take(RW);        // a row sum's threads' partial sums
+  const int room = (psd::kSmemMax / 4 - o) / nlp;
+  p.njs = room < 0 ? 0 : (room < nv ? room : nv);
+  p.o_J = take(p.njs * nlp);  // Jᵀ's first njs dofs [njs][nlp]
+  p.total = o;
+  return p;
+}
+
+constexpr Plan P = make_plan();
+constexpr int NJS = P.njs;
+
+// f[:] <- project(f - alpha*d) as solver._project takes it: NG groups of K
+// contacts (fn >= 0, the tangent pair clipped to the mu_t*fn disk,
+// torsion at mu_tor*fn, the rolling rows at mu_roll*fn, masked by con_act),
+// then the limit rows >= 0 masked by lim_act, then padding rows 0.
+__device__ void project(float* f, const float* d, float alpha,
+                        const float* mu_t, const float* mu_tor,
+                        const float* mu_roll, const float* con_act,
+                        const float* lim_act) {
+  for (int k = threadIdx.x; k < K; k += T) {
+    float v[NG];
+#pragma unroll
+    for (int q = 0; q < NG; ++q) v[q] = f[q * K + k] - alpha * d[q * K + k];
+    const float ca = con_act[k];
+    const float fn = fmaxf(v[0], 0.0f) * ca;
+    const float tn = sqrtf(v[1] * v[1] + v[2] * v[2] + 1e-18f);
+    const float scale = fminf(mu_t[k] * fn / tn, 1.0f);
+    const float lim = mu_tor[k] * fn;
+    f[k] = fn;
+    f[K + k] = v[1] * scale * ca;
+    f[2 * K + k] = v[2] * scale * ca;
+    f[3 * K + k] = fminf(fmaxf(v[3], -lim), lim) * ca;
+    if constexpr (NG == 6) {
+      const float lr = mu_roll[k] * fn;
+      f[4 * K + k] = fminf(fmaxf(v[4], -lr), lr) * ca;
+      f[5 * K + k] = fminf(fmaxf(v[5], -lr), lr) * ca;
+    }
+  }
+  for (int j = threadIdx.x; j < nI - NG * K; j += T) {
+    const int r = NG * K + j;
+    const float v = f[r] - alpha * d[r];
+    f[r] = j < 2 * nlim ? fmaxf(v, 0.0f) * lim_act[j] : 0.0f;
+  }
+}
+
+// sum over k < N of a(k) * x[k] in the order of G chains of W-term chunks
+// (the namespace's comment); a(k) is read where the loop needs it
+template <int N, int G, int W, typename Ak>
+__device__ __forceinline__ float ordered_dot(Ak a, const float* x) {
+  float p[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    p[g] = 0.0f;
+    bool first = true;
+#pragma unroll
+    for (int c = g; c * W < N; c += G) {
+#pragma unroll
+      for (int j = c * W; j < (N < c * W + W ? N : c * W + W); ++j) {
+        p[g] = first ? a(j) * x[j] : fmaf(a(j), x[j], p[g]);
+        first = false;
+      }
+    }
+  }
+#pragma unroll
+  for (int h = G / 2; h > 0; h >>= 1) {
+#pragma unroll
+    for (int i = 0; i < h; ++i) p[i] = p[i] + p[i + h];
+  }
+  return p[0];
+}
+
+// The sum of x[0..nI) as torch's vectorized row reduction takes it, for a
+// row that starts `shift` floats past a 16-byte boundary: RW threads, each
+// with four accumulators over float4s RW apart (the head before the
+// boundary and the tail after the last whole float4 into threads' first
+// accumulators), the accumulators added in turn, the threads' sums halved
+// through shared memory (`buf`, RW floats) down to one warp, and that
+// warp's by shuffles 16, 8, 4, 2, 1 apart.  Called by threads 0..RW-1
+// alone, which meet at named barrier 1; thread 0 returns the sum.
+__device__ float row_sum(const float* x, int shift, float* buf) {
+  const int t = threadIdx.x;
+  int end = nI, base = 0;
+  float a0 = 0.0f;
+  if (shift > 0) {
+    end += shift;
+    if (t >= shift && t < 4) a0 = a0 + x[t - shift];
+    end -= 4;
+    base = 4 - shift;
+  }
+  float a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+  for (int i = t; i * 4 + 3 < end; i += RW) {
+    const float* q = x + base + 4 * i;
+    a0 = a0 + q[0];
+    a1 = a1 + q[1];
+    a2 = a2 + q[2];
+    a3 = a3 + q[3];
+  }
+  const int tail = end - end % 4;
+  if (tail + t < end) a0 = a0 + x[base + tail + t];
+  float s = ((a0 + a1) + a2) + a3;
+  if constexpr (RW > 32) {
+    buf[t] = s;
+#pragma unroll
+    for (int off = RW / 2; off >= 32; off >>= 1) {
+      asm volatile("bar.sync 1, %0;\n" ::"r"(RW) : "memory");
+      if (t < off) {
+        s = s + buf[t + off];
+        buf[t] = s;
+      }
+    }
+  }
+  if (t < 32) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      s = s + __shfl_down_sync(kFull, s, off);
+  }
+  return s;
+}
+
+struct Env {
+  float* sm;
+  const float* JT;  // this env's J transposed, in device memory [nv][nI]:
+                    // a warp's rows read one line a dof (the first NJS
+                    // dofs are in shared memory)
+};
+
+// out = (J u + R v) - A_IE (EEinv (J_E u)), u = X v, as solver._apply
+// takes it, each sum in its library's order.  Ends with each thread's rows
+// of out written (rows l = threadIdx.x + k T), and no barrier.
+__device__ void apply(const Env& e, const float* v, float* out) {
+  float* sm = e.sm;
+  const float* X = sm + P.o_X;
+  float* up = sm + P.o_up;
+  float* u = sm + P.o_u;
+  float* w = sm + P.o_w;
+  float* z = sm + P.o_z;
+  const int tid = threadIdx.x;
+  // u's chains: chain g of output o over the chunks g, g + GU, .. of WU rows
+  for (int t = tid; t < nv * GU; t += T) {
+    const int o = t % nv, g = t / nv;
+    const float* xo = X + o * nlp;
+    float acc = 0.0f;
+    if (g * WU < nI) {
+      acc = xo[g * WU] * v[g * WU];
+      for (int c = g; c * WU < nI; c += GU) {
+        const int lo = c * WU;
+        if (lo + WU <= nI) {   // a whole chunk: its loads ahead of the chain
+#pragma unroll
+          for (int j = 0; j < WU; ++j)
+            if (c != g || j > 0) acc = fmaf(xo[lo + j], v[lo + j], acc);
+        } else {
+          for (int j = (c == g ? lo + 1 : lo); j < nI; ++j)
+            acc = fmaf(xo[j], v[j], acc);
+        }
+      }
+    }
+    up[g * nv + o] = acc;
+  }
+  __syncthreads();
+  for (int o = tid; o < nv; o += T) {
+    float p[GU];
+#pragma unroll
+    for (int g = 0; g < GU; ++g) p[g] = up[g * nv + o];
+#pragma unroll
+    for (int h = GU / 2; h > 0; h >>= 1) {
+#pragma unroll
+      for (int i = 0; i < h; ++i) p[i] = p[i] + p[i + h];
+    }
+    u[o] = p[0];
+  }
+  __syncthreads();
+  if (tid < 32) {         // w and z in one warp
+    if (tid < nE) {
+      const float* je = sm + P.o_je + tid * nv;
+      w[tid] = ordered_dot<nv, GW, WW>([je](int k) { return je[k]; }, u);
+    }
+    __syncwarp();
+    if (tid < nE) {
+      const float* ee = sm + P.o_ee + tid * nE;
+      z[tid] = ordered_dot<nE, GZ, WZ>([ee](int k) { return ee[k]; }, w);
+    }
+  }
+  __syncthreads();
+  const float* A = sm + P.o_A;
+  const float* R = sm + P.o_R;
+  const float* Js = sm + P.o_J;
+  for (int l = tid; l < nI; l += T) {
+    const float* jt = e.JT + l;
+    const float* js = Js + l;
+    const float ju = ordered_dot<nv, GJ, WJ>(
+        [jt, js](int k) { return k < NJS ? js[k * nlp] : jt[k * nI]; }, u);
+    const float* al = A + l * nE;
+    const float s = ordered_dot<nE, GA, WA>([al](int k) { return al[k]; }, z);
+    out[l] = (ju + R[l] * v[l]) - s;
+  }
+}
+
+__global__ void __launch_bounds__(T)
+psd_solve_kernel(const float* __restrict__ J, const float* __restrict__ X,
+                 const float* __restrict__ A_IE,
+                 const float* __restrict__ EEinv,
+                 const float* __restrict__ R, const float* __restrict__ b,
+                 const float* __restrict__ precond,
+                 const float* __restrict__ f0,
+                 const float* __restrict__ mu_t,
+                 const float* __restrict__ mu_tor,
+                 const float* __restrict__ con_act,
+                 const float* __restrict__ lim_act,
+                 const float* __restrict__ mu_roll,
+                 const float* __restrict__ J_E, float* __restrict__ out,
+                 int iterations) {
+  extern __shared__ __align__(16) float sm[];
+  const long long env = blockIdx.x;
+  const int tid = threadIdx.x;
+  float* f = sm + P.o_f;
+  float* g = sm + P.o_g;
+  float* d = sm + P.o_d;
+  float* ad = sm + P.o_ad;
+  float* Rs = sm + P.o_R;
+  float* bs = sm + P.o_b;
+  float* pre = sm + P.o_pre;
+  float* prod = sm + P.o_prod;
+  float* mt = sm + P.o_mut;
+  float* mr = sm + P.o_mur;
+  float* mro = sm + P.o_mro;
+  float* ca = sm + P.o_ca;
+  float* la = sm + P.o_la;
+  float* red = sm + P.o_red;
+  float* rs = sm + P.o_rs;
+  const float* Xenv = X + env * nv * nI;
+  for (int i = tid; i < nv * nI; i += T) {
+    const int o = i / nI;
+    sm[P.o_X + o * nlp + (i - o * nI)] = Xenv[i];
+  }
+  for (int i = tid; i < nI * nE; i += T) sm[P.o_A + i] = A_IE[env * nI * nE + i];
+  const float* JTenv = J + env * nv * nI;  // form 1's J is Jᵀ [B][nv][nI]
+  for (int i = tid; i < NJS * nI; i += T) {
+    const int k = i / nI;
+    sm[P.o_J + k * nlp + (i - k * nI)] = JTenv[i];
+  }
+  for (int i = tid; i < nE * nv; i += T) sm[P.o_je + i] = J_E[env * nE * nv + i];
+  for (int i = tid; i < nE * nE; i += T) sm[P.o_ee + i] = EEinv[env * nE * nE + i];
+  const long long vo = env * nI;
+  for (int l = tid; l < nI; l += T) {
+    f[l] = f0[vo + l];
+    Rs[l] = R[vo + l];
+    bs[l] = b[vo + l];
+    pre[l] = precond[vo + l];
+  }
+  for (int k = tid; k < K; k += T) {
+    mt[k] = mu_t[env * K + k];
+    mr[k] = mu_tor[env * K + k];
+    ca[k] = con_act[env * K + k];
+    if constexpr (NG == 6) mro[k] = mu_roll[env * K + k];
+  }
+  for (int j = tid; j < 2 * nlim; j += T) la[j] = lim_act[env * 2 * nlim + j];
+  __syncthreads();
+  const Env e = {sm, JTenv};
+  // the eager loop's products g*d and d*Ad are rows of a [B, nI] tensor:
+  // this env's row starts (env * nI) floats into a 16-byte aligned buffer
+  const int shift = static_cast<int>((env * nI) % 4);
+  for (int it = 0; it < iterations; ++it) {
+    apply(e, f, g);
+    for (int l = tid; l < nI; l += T) {
+      const float gi = g[l] + bs[l];
+      const float di = pre[l] * gi;
+      g[l] = gi;
+      d[l] = di;
+      prod[l] = gi * di;
+    }
+    __syncthreads();
+    if (tid < RW) {
+      const float num = row_sum(prod, shift, rs);
+      if (tid == 0) red[0] = num;
+    }
+    apply(e, d, ad);   // its first barrier comes after the sum read prod
+    for (int l = tid; l < nI; l += T) prod[l] = d[l] * ad[l];
+    __syncthreads();
+    if (tid < RW) {
+      const float den = row_sum(prod, shift, rs);
+      if (tid == 0) red[1] = den;
+    }
+    __syncthreads();
+    const float num = red[0], den = red[1];
+    const float alpha = den > 1e-12f ? num / fmaxf(den, 1e-12f) : 0.0f;
+    project(f, d, alpha, mt, mr, mro, ca, la);
+    __syncthreads();
+  }
+  for (int l = tid; l < nI; l += T) out[vo + l] = f[l];
+}
+
+}  // namespace psdx
+#endif
+
+// Bytes of dynamic shared memory one block needs.
+extern "C" int psd_solve_smem_bytes() {
+#if PSD_FORM == 1
+  return 4 * psdx::P.total;
+#else
+  return 4 * psd::P.total;
+#endif
+}
+
+// Launch B envs on `stream` (form 0: C blocks of T threads each as one
+// cluster; form 1: one block an env); returns the CUDA error (0 =
+// launched).  mu_roll and J_E are read by form 1 only.
 extern "C" int psd_solve_f32(const float* J, const float* X,
                              const float* A_IE, const float* EEinv,
                              const float* R, const float* b,
                              const float* precond, const float* f0,
                              const float* mu_t, const float* mu_tor,
                              const float* con_act, const float* lim_act,
+                             const float* mu_roll, const float* J_E,
                              float* out, int B, int iterations,
                              void* stream) {
   if (B == 0 || psd::nI == 0) return 0;
+#if PSD_FORM == 1
+  constexpr size_t smem = 4 * static_cast<size_t>(psdx::P.total);
+  if (smem > psd::kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      psdx::psd_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  psdx::psd_solve_kernel<<<B, psd::T, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      J, X, A_IE, EEinv, R, b, precond, f0, mu_t, mu_tor, con_act, lim_act,
+      mu_roll, J_E, out, iterations);
+  return static_cast<int>(cudaGetLastError());
+#else
+  (void)mu_roll;
+  (void)J_E;
   constexpr size_t smem = 4 * static_cast<size_t>(psd::P.total);
   if (smem > psd::kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
@@ -844,6 +1268,7 @@ extern "C" int psd_solve_f32(const float* J, const float* X,
                            out, iterations);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+#endif
 }
 
 extern "C" const char* psd_cuda_error_string(int err) {

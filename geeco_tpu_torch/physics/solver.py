@@ -20,11 +20,15 @@ deepest contacts, ``'quota'`` the deepest few of each free body's rows
 per-island block variants ``psd_block`` and ``bb_block`` (quota selection
 only: their row blocks are the quota groups, ``block_ids``), and
 ``'pallas'``, which runs the PSD iteration as one fused kernel per substep
-(``solver_pallas.psd_solve``) when the rows form 4 contact groups (ngrp=4,
-no rolling rows), and the plain ``'psd'`` iteration otherwise, as the JAX
-package does.  On the card the other methods' iterations are recorded
-into the last of the substep's CUDA graphs (``physics/substep_graph.py``)
-and replay with it.
+(``solver_pallas.psd_solve``) in the TPU kernel's form when the rows form 4
+contact groups (ngrp=4, no rolling rows), and the ``'psd'`` iteration
+otherwise, as the JAX package does.  On the card the ``'psd'`` iteration
+itself is one launch of that kernel in its form 1, which gives the eager
+loop's forces bit for bit, wherever the kernel has a plan for the shapes
+(``_solve_rows``, ``fuses``; the first solve of an operands' layout holds
+the kernel to the loop and raises where they differ); the other methods'
+iterations are a loop of small kernels.  Either is recorded into the last of the substep's CUDA
+graphs (``physics/substep_graph.py``) and replays with it.
 """
 
 from __future__ import annotations
@@ -688,9 +692,96 @@ def _project(f: torch.Tensor, rows: _Rows, mu_t, mu_tor, mu_roll,
   return torch.cat(cols, 1)
 
 
+# the operands' layout (``_layout``) -> the eager loop's summation orders
+# on it (``_checked_orders``); ``_checked``: the layouts where the fused
+# kernel summed in them gave the loop's finite forces bit for bit
+_orders: dict = {}
+_checked: set = set()
+
+
+def _layout(ops, b) -> tuple:
+  """What fixes the eager loop's summation orders: the card, the batch,
+  and each operand's sizes, strides and offset."""
+  return (b.device,) + tuple((tuple(t.shape), t.stride(), t.storage_offset())
+                             for t in (*ops, b))
+
+
+def fuses(method: str, rows: _Rows, ops, b, precond, f0, cone) -> bool:
+  """Whether the projected iteration runs as one launch of the fused
+  kernel with the eager loop's summation orders (``solver_pallas.psd_solve``
+  in form 1): on a card, where ``_fits`` holds.  Decided on what the solve
+  observes; everywhere else the eager loop runs."""
+  return b.device.type == 'cuda' and _fits(method, rows, ops, b, precond,
+                                           f0, cone)
+
+
+def _fits(method: str, rows: _Rows, ops, b, precond, f0, cone) -> bool:
+  """``fuses`` on any device: the method is 'psd', every operand float32
+  on ``b``'s device, none that autograd needs, X stored as its transpose's
+  rows (as ``mass_inverse='chol'`` leaves it: with X's rows contiguous, as
+  under 'blockgj', cuBLAS sums u = X v in an order the kernel does not
+  mirror), the rows the contact groups and the limit rows alone, weld
+  rows, and a plan for the shapes (``solver_pallas.fused_plan``)."""
+  tensors = (*ops, b, precond, f0, *cone)
+  dev = b.device
+  if (method != 'psd' or len(ops) < 6 or ops[1].stride(1) != 1 or
+      any(t.device != dev or t.dtype != torch.float32 for t in tensors)):
+    return False
+  if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    return False
+  B, nI = b.shape
+  if rows.lim_lo != rows.ngrp * rows.Kc or nI != rows.lim_hi:
+    return False
+  return SP.fused_plan(B, nI, ops[0].shape[2], ops[3].shape[1], rows.Kc,
+                       (rows.lim_hi - rows.lim_lo) // 2) is not None
+
+
+def _fused_psd(iterations: int, rows: _Rows, ops, b, precond, f0, cone,
+               orders: dict):
+  """The 'psd' iteration as one launch of the fused kernel summed in
+  ``orders`` (its plain twin on the CPU), on ``_solve_rows``' operands."""
+  J, X, R, J_E, A_IE, EEinv = ops
+  mu_t, mu_tor, mu_roll, con_active, lim_active = (t.contiguous()
+                                                    for t in cone)
+  return SP.psd_solve(
+      J, *(t.contiguous() for t in (X, A_IE, EEinv, R, b, precond, f0)),
+      mu_t, mu_tor, con_active, lim_active, rows.Kc,
+      (rows.lim_hi - rows.lim_lo) // 2, iterations,
+      mu_roll=mu_roll if rows.ngrp == 6 else None, J_E=J_E.contiguous(),
+      orders=orders)
+
+
+def _checked_orders(iterations, rows, ops, b, precond, f0, cone, eager):
+  """The summation orders of the eager loop on these operands
+  (``solver_pallas.library_orders``), and whether the fused kernel summed
+  in them gave ``eager``, the loop's forces, bit for bit: False where
+  those are not finite (after a failed factor, which the substep raises),
+  and nothing is compared.  Raises where the orders are not of the family
+  the kernel sums in, or the kernel's forces differ: the kernel has a plan
+  for these shapes, and a solve that cannot take it is a fault to mend (a
+  library that sums in another order), not a path."""
+  where = (f'solver: the fused kernel (solver_pallas.psd_solve, form 1) at '
+           f'the layout {_layout(ops, b)}')
+  orders = SP.library_orders(ops[0], ops[1], ops[3], ops[4], ops[5])
+  if orders is None:
+    raise RuntimeError(f'{where}: the eager loop\'s products sum in no '
+                       'order of the family the kernel sums in '
+                       '(solver_pallas.library_orders)')
+  if not bool(torch.isfinite(eager).all()):
+    return orders, False
+  f = _fused_psd(iterations, rows, ops, b, precond, f0, cone, orders)
+  if not torch.equal(f, eager):
+    gap = float((f - eager).abs().max())
+    raise RuntimeError(f'{where}, summed in {orders}: forces differ from the '
+                       f'eager loop\'s by up to {gap:.3g}')
+  return orders, True
+
+
 def _capturing(device: torch.device) -> bool:
-  """Whether the current stream of ``device``, a card, is capturing a
-  CUDA graph."""
+  """Whether the current stream of ``device`` is a card's and is capturing
+  a CUDA graph."""
+  if device.type != 'cuda':
+    return False
   with torch.cuda.device(device):
     return torch.cuda.is_current_stream_capturing()
 
@@ -698,18 +789,43 @@ def _capturing(device: torch.device) -> bool:
 def _solve_rows(method: str, iterations: int, rows: _Rows, nblocks: int,
                 ops, b, precond, f0, cone, bid=None) -> torch.Tensor:
   """The projected iteration (``_iterate`` over the operator's operands
-  ``ops`` (``_apply``) and the projection's ``cone`` (``_project``)), a
-  loop of small kernels; on the card the substep's last CUDA graph records
-  it and replays it (``physics/substep_graph.py``).  Counts
-  ``solver.iterations`` and, of those, ``solver.graphed_iterations``: the
-  iterations recorded into a graph being captured, which run as its
-  replay."""
+  ``ops`` (``_apply``) and the projection's ``cone`` (``_project``)): one
+  launch of the fused kernel where ``fuses`` holds, else a loop of small
+  kernels; on the card the substep's last CUDA graph records either and
+  replays it (``physics/substep_graph.py``).  Until the kernel has been
+  held to the loop's finite forces at an operands' layout
+  (``_checked_orders``, which raises where they differ), a solve of the
+  layout outside a capture runs the loop and holds it so; the first has
+  to come before any capture of that layout, as a chain's eager warm-up
+  does.
+  Counts ``solver.iterations`` and, of those,
+  ``solver.graphed_iterations`` (the iterations recorded into a graph
+  being captured, which run as its replay) and ``solver.fused_iterations``
+  (the iterations the fused kernel runs)."""
+  capturing = _capturing(b.device)
+  fused = fuses(method, rows, ops, b, precond, f0, cone)
   profiling.count('solver.iterations', iterations)
-  profiling.count('solver.graphed_iterations', iterations if (
-      b.device.type == 'cuda' and _capturing(b.device)) else 0)
-  return _iterate(lambda f: _apply(f, *ops),
-                  lambda f: _project(f, rows, *cone), f0, b, precond,
-                  iterations, method, bid, nblocks)
+  profiling.count('solver.graphed_iterations', iterations if capturing else 0)
+  profiling.count('solver.fused_iterations', iterations if fused else 0)
+  if not fused:
+    return _iterate(lambda f: _apply(f, *ops),
+                    lambda f: _project(f, rows, *cone), f0, b, precond,
+                    iterations, method, bid, nblocks)
+  key = _layout(ops, b)
+  if key not in _checked and not capturing:
+    eager = _iterate(lambda f: _apply(f, *ops),
+                     lambda f: _project(f, rows, *cone), f0, b, precond,
+                     iterations, method, bid, nblocks)
+    _orders[key], checked = _checked_orders(iterations, rows, ops, b,
+                                            precond, f0, cone, eager)
+    if checked:
+      _checked.add(key)
+    return eager
+  if key not in _orders:
+    raise RuntimeError(f'solver: the layout {key} is first solved inside '
+                       'a CUDA graph capture, where the fused kernel '
+                       'cannot be checked; solve it once before capture')
+  return _fused_psd(iterations, rows, ops, b, precond, f0, cone, _orders[key])
 
 
 def minv_jt(smooth: D.Smooth, J: torch.Tensor) -> torch.Tensor:
@@ -732,16 +848,26 @@ def solve(model: Model, cs: ConstraintStatic, smooth: D.Smooth,
   dual conditioning; they are solved exactly by Schur complement (they need
   no cone projection) and only the inequality rows are iterated.
 
-  Every method but ``'pallas'`` iterates in PyTorch, one small kernel per
-  operation (``_iterate``); on the card those kernels are recorded into the
-  substep's last CUDA graph and replay with it (``_solve_rows``,
-  ``physics/substep_graph.py``), which saves the host ~60 launches an
-  iteration.  ``method='pallas'`` runs the whole iteration
-  as one fused kernel launch (``solver_pallas.psd_solve``: the CUDA kernel
-  on the card, its plain twin on the CPU), with the TPU kernel's operator
-  form; it needs ngrp=4, and at ngrp=6 (rolling rows) it runs the
-  ``'psd'`` iteration, as in the JAX package.  The block methods need quota
-  selection.  M⁻¹ is applied as ``smooth`` carries it: the Cholesky factor
+  What runs where.  On the CPU every method but ``'pallas'`` iterates in
+  PyTorch, one small kernel per operation (``_iterate``).  On the card
+  ``'psd'`` runs its whole iteration as one launch of the fused kernel
+  (``solver_pallas.psd_solve`` in form 1: this loop's operator
+  ``(J_I u + R f) - A_IE (EEinv (J_E u))``, u = X_I f, and projection,
+  every sum in the order the loop's ``torch.bmm`` and ``sum`` take it, so
+  that the forces are the loop's bit for bit) wherever ``fuses`` holds
+  (float32, no autograd, X as ``mass_inverse='chol'`` stores it, weld
+  rows, one env's X and rows within a block, as at pad2-cube2's shapes;
+  clutter4's and nut-cone's are too large), after a solve of the
+  operands' layout held the kernel to the loop, bit for bit
+  (``_checked_orders``, which raises where they differ);
+  elsewhere, and for the other methods, the loop of small kernels.  Either
+  is recorded into the substep's last CUDA graph and replays with it
+  (``_solve_rows``, ``physics/substep_graph.py``).  ``method='pallas'`` runs the whole
+  iteration as one fused kernel launch (``solver_pallas.psd_solve``: the
+  CUDA kernel on the card, its plain twin on the CPU), with the TPU
+  kernel's operator form; it needs ngrp=4, and at ngrp=6 (rolling rows) it
+  runs the ``'psd'`` iteration, as in the JAX package.  The block methods
+  need quota selection.  M⁻¹ is applied as ``smooth`` carries it: the Cholesky factor
   (``torch.cholesky_solve``), or under ``mass_inverse='blockgj'`` the
   explicit inverse.  The weld Schur block is inverted by
   ``torch.linalg.inv`` (``linalg.inv``) under both (the JAX package

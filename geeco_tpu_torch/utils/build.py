@@ -8,10 +8,11 @@ Hopper with a plain C interface::
 
 ``load_kernels`` gives the rasterizer (``raster_tiles.cu``), built at first
 use.  ``load_psd`` gives the fused PSD solve (``psd_solve.cu``) built for
-one set of shapes and one launch plan, passed as ``-DPSD_*`` constants: the
-kernel's loops and offsets are compile-time, and a new shape costs one nvcc
-run (a few seconds) at its first solve.  ``build_all`` builds several
-libraries at once, every nvcc started together.
+one set of shapes, row groups and form and one launch plan, passed as
+``-DPSD_*`` constants: the kernel's loops and offsets are compile-time, and
+a new shape costs one nvcc run (a few seconds) at its first solve.
+``build_all`` builds several libraries at once, every nvcc started
+together.
 
 ``load_native`` builds a host library from ``geeco_tpu_torch/native/`` with
 ``g++ -O2 -shared -fPIC ... -lz`` (the TFRecord writer) into
@@ -44,10 +45,13 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
               '-fPIC')
 # the constants psd_solve.cu is built with: the shapes of one solve and
 # its launch plan (physics/solver_pallas.py::plan)
-PSD_KEYS = ('nI', 'nv', 'nE', 'K', 'nlim', 'cluster', 'threads', 'resident',
-            'jreg', 'xreg')
-_PSD_MACROS = ('PSD_NI', 'PSD_NV', 'PSD_NE', 'PSD_K', 'PSD_NLIM', 'PSD_C',
-               'PSD_THREADS', 'PSD_RESIDENT', 'PSD_JREG', 'PSD_XREG')
+PSD_KEYS = ('nI', 'nv', 'nE', 'K', 'nlim', 'ngrp', 'form', 'cluster',
+            'threads', 'resident', 'jreg', 'xreg', 'gu', 'wu', 'gj', 'wj',
+            'gw', 'ww', 'gz', 'wz', 'ga', 'wa', 'rw')
+_PSD_MACROS = ('PSD_NI', 'PSD_NV', 'PSD_NE', 'PSD_K', 'PSD_NLIM', 'PSD_NGRP',
+               'PSD_FORM', 'PSD_C', 'PSD_THREADS', 'PSD_RESIDENT', 'PSD_JREG',
+               'PSD_XREG', 'PSD_GU', 'PSD_WU', 'PSD_GJ', 'PSD_WJ', 'PSD_GW',
+               'PSD_WW', 'PSD_GZ', 'PSD_WZ', 'PSD_GA', 'PSD_WA', 'PSD_RW')
 
 # seconds the last build took in this process (0.0 when it was cached),
 # and what nvcc printed (ptxas's register and shared-memory report)
@@ -118,9 +122,10 @@ def library_path() -> str:
 
 def psd_library(spec: dict, defines: tuple = ()) -> tuple:
   """(path, nvcc arguments) of the PSD solve built for `spec`, which holds
-  PSD_KEYS: the shapes nI, nv, nE, K, nlim and the plan's cluster, threads,
-  resident, jreg, xreg (``solver_pallas.build_spec``); `defines` adds
-  macros."""
+  PSD_KEYS: the shapes nI, nv, nE, K, nlim, the row groups ngrp (4 or 6),
+  the form (0: the TPU kernel's, 1: ``solver.solve``'s 'psd' iteration
+  summed in the eager loop's orders, ``gu`` .. ``rw``) and the plan's cluster, threads, resident, jreg, xreg
+  (``solver_pallas.build_spec``); `defines` adds macros."""
   return _library('psd_solve.cu', tuple(
       f'{m}={int(spec[k])}' for m, k in zip(_PSD_MACROS, PSD_KEYS)) +
       tuple(defines))
@@ -147,7 +152,7 @@ def _load_psd(values: tuple) -> ctypes.CDLL:
   build_all([(out, args)])
   lib = ctypes.CDLL(out)
   vp, ci = ctypes.c_void_p, ctypes.c_int
-  lib.psd_solve_f32.argtypes = [vp] * 13 + [ci, ci, vp]
+  lib.psd_solve_f32.argtypes = [vp] * 15 + [ci, ci, vp]
   lib.psd_solve_f32.restype = ci
   lib.psd_solve_smem_bytes.argtypes = []
   lib.psd_solve_smem_bytes.restype = ci

@@ -16,9 +16,12 @@ could take.  The checks that the kernels are right are the card tests
   K2, the fused PSD solve: the operands of a substep 5 control steps into
       the expert's episode on the fused-solve env at B=64, in the plan's
       cluster and in 1, 2 and 4 blocks an env, at B=64 and at B=1 (env
-      0's); then clutter4's and nut-cone's at rolling=False.  Bound: each
-      operand read once, the forces written once, and the operations of
-      60 iterations (``psd_work``).
+      0's); then clutter4's and nut-cone's at rolling=False.  In the
+      'psd' form (``solver.solve``'s own iteration with the eager loop's
+      summation orders, 6 row groups), the production env's: a substep 5
+      control steps into the expert's episode at B=64 and B=256, one block
+      an env.  Bound: each operand read once, the forces written once,
+      and the operations of 60 iterations (``psd_work``).
 
 Both kernels run in well under a Python launch's host time, so each is
 timed queued behind a spin kernel (``cuda_ms(queued=True)``).  Bounds are
@@ -27,10 +30,11 @@ the tensor cores, at 700 W); the card's name and power limit are printed
 first.  The last line is a JSON object of every timing.
 
 --psd-phases builds ``csrc/psd_solve.cu`` once more with -DPSD_PROFILE and
-prints the cycles thread 0 spends in each phase of an iteration, per
-cluster size.  --raster-phases builds ``csrc/raster_tiles.cu`` once more
-with -DRASTER_PROFILE and prints, per tile side, how K1's warps share the
-SMs.  Imports nothing of JAX.
+prints the cycles thread 0 spends in each phase of an iteration of the
+TPU kernel's form, per cluster size.
+--raster-phases builds ``csrc/raster_tiles.cu`` once more with
+-DRASTER_PROFILE and prints, per tile side, how K1's warps share the SMs.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -60,12 +64,15 @@ from test_torch_card_kernels import (ENVS, SKY, build_kernels,  # noqa: E402
                                      capture_solve, launches_of_k1,
                                      option_renderer, production_env,
                                      random_planes, random_psd_operands)
+from test_torch_card_psd_rolling import production_operands  # noqa: E402
 
 HBM_RATE = 3.35e12      # bytes/s
 FP32_RATE = 67e12       # float32 operations/s outside the tensor cores
 # K1's tiles timed besides production's 16: (tile, frame side)
 OTHER_TILES = ((8, 256), (32, 256), (10, 320))
 K2_SCENES = ('pad2-cube2-clutter4', 'nut-cone')
+# the batches the 'psd' form is timed at: the closed loop's and collect's
+PSD_BATCHES = (64, 256)
 
 
 def cuda_ms(fn, repeats: int, queued: bool = False) -> float:
@@ -114,14 +121,17 @@ def bound(ops: float, nbytes: float):
 def psd_work(ops):
   """(operations, bytes) of one fused PSD solve: each operand read once
   and the forces written once; per iteration two operator applications
-  (u, w, z, the rows), g, d, the two dot products, the update and the
-  projection."""
+  (u, w, z, the rows: w = A_IEᵀ v, or in the 'psd' form w = J_E u), g, d,
+  the two dot products, the update and the projection (two more groups
+  with the rolling rows)."""
   B, nI, nv = ops['J'].shape
   nE, K, nlim = ops['A_IE'].shape[2], ops['K'], ops['nlim']
   nbytes = 4 * (sum(t.numel() for t in ops.values()
                     if isinstance(t, torch.Tensor)) + B * nI)
-  op = 4 * (nv + nE) * nI + 2 * nE * nE + 3 * nI
-  per_iter = 2 * op + 8 * nI + 18 * K + 4 * nlim
+  w = 2 * nE * nv if 'J_E' in ops else 2 * nE * nI
+  op = 4 * nv * nI + 2 * nE * nI + w + 2 * nE * nE + 3 * nI
+  per_iter = 2 * op + 8 * nI + (26 if 'mu_roll' in ops else 18) * K + \
+      4 * nlim
   return float(B) * ops['iterations'] * per_iter, nbytes
 
 
@@ -145,11 +155,18 @@ def time_k1(coeffs, tile, label):
 def time_k2(ops, label, clusters=()):
   """K2's time in the plan's cluster (and in each of ``clusters``) and its
   twin's on ``ops``, against psd_work's bound."""
-  lay = SP.plan(*ops['J'].shape, ops['A_IE'].shape[2], ops['K'])
+  B, nI, nv = ops['J'].shape
+  if 'orders' in ops:
+    lay = SP._exact_layout(nI, nv, ops['A_IE'].shape[2], ops['K'],
+                           ops['nlim'], ops['orders']['gu'],
+                           ops['orders']['rw'])
+  else:
+    lay = SP.plan(B, nI, nv, ops['A_IE'].shape[2], ops['K'])
   ms = cuda_ms(lambda: SP.psd_solve(**ops), 30, queued=True)
   per_c = {C: cuda_ms(lambda: SP.psd_solve(**ops, cluster=C), 30,
                       queued=True) for C in clusters}
-  plain_ms = cuda_ms(lambda: SP.psd_solve_reference(**ops), 3)
+  twin = {k: v for k, v in ops.items() if k != 'orders'}
+  plain_ms = cuda_ms(lambda: SP.psd_solve_reference(**twin), 3)
   b_ms, by = bound(*psd_work(ops))
   print(f'[k2] {label}: B={ops["J"].shape[0]}, nI={ops["J"].shape[1]}, '
         f'nv={ops["J"].shape[2]}, nE={ops["A_IE"].shape[2]}, K={ops["K"]}; '
@@ -204,6 +221,14 @@ def probe(card):
     es = env.step(es, torch.zeros(ENVS, 4, device=card))
     out['k2'][shapes] = time_k2(capture_solve(env, es.phys), shapes)
     del env, es
+  env = make_env('pad2-cube2', device=card)
+  env.setup()
+  for B in PSD_BATCHES:
+    es = env.reset_random(B, torch.Generator(device=card).manual_seed(2))
+    es, _ = EP.rollout(env, es, EP.make_expert(env), length=5)
+    label = f"pad2-cube2 'psd' form B={B}"
+    out['k2'][label] = time_k2(production_operands(env, es.phys), label)
+    del es
   print(json.dumps(out))
 
 
@@ -224,13 +249,13 @@ def psd_phases(card):
   build.build_all(libs)
   for spec, (so, _) in zip(specs, libs):
     lib = ctypes.CDLL(so)
-    lib.psd_solve_f32.argtypes = [ctypes.c_void_p] * 13 + [
+    lib.psd_solve_f32.argtypes = [ctypes.c_void_p] * 15 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.psd_solve_f32.restype = ctypes.c_int
     res = torch.zeros((ENVS, 530), device=card)
     for _ in range(2):
       err = lib.psd_solve_f32(
-          *(ctypes.c_void_p(ops[k].data_ptr()) for k in order),
+          *(ctypes.c_void_p(ops[k].data_ptr()) for k in order), None, None,
           ctypes.c_void_p(res.data_ptr()), ENVS, ops['iterations'],
           ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
       if err:

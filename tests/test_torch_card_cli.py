@@ -10,8 +10,9 @@ balanced split, 2 train steps and an eval pass, a third step resumed from
 restored from the checkpoint (weights equal bit for bit, its predictions
 against the trainer model's forward), the batched controller on the test
 split (the CSVs' rows).  Every CLI call holds the first K1 launch of each
-batch size against the twin and never launches K2 (the CLIs build
-rolling-row envs: the plain psd iteration).  The CPU's chain at a small
+batch size against the twin and runs every projected iteration in K2's
+'psd' form, with the eager loop's summation orders (the CLIs build
+rolling-row envs whose method is 'psd'; ``solver._solve_rows``).  The CPU's chain at a small
 size is ``tests/test_torch_cli.py``.
 
 tests/conftest.py imports JAX, which the card lacks, so there the file
@@ -31,6 +32,7 @@ import torch
 from geeco_tpu_torch.data.episode import load_episode
 from geeco_tpu_torch.physics import solver_pallas as SP
 from geeco_tpu_torch.render import raster_kernel as rk
+from geeco_tpu_torch.utils import profiling
 from test_torch_card_kernels import card, checked_k1  # noqa: F401 (fixture)
 from test_torch_card_paths import BF16_REL
 
@@ -44,15 +46,39 @@ CLI_FRAME_ENVS, CLI_ENVS, CLI_STEPS = 8, 40, 10
 CLI_BATCH, CLI_CTRL_ENVS, CLI_CL_STEPS = 8, 16, 5
 
 
-def _run(cli, argv):
+def _run(cli, argv, solves=True):
   """One CLI call on the card; (its result, its K1 launches), each batch
-  size's first launch held against the twin, K2 never launched."""
+  size's first launch held against the twin.  Every projected iteration
+  runs in K2's 'psd' form (``solver.fused_iterations`` counts them all;
+  a CLI that collects or controls (``solves``) runs some), and K2's
+  wrapper is only ever called in that form, with the eager loop's orders
+  (never the TPU kernel's)."""
   rk.raster_tiles.launches = 0
-  SP.psd_solve.launches = 0
-  with checked_k1(first_of_each_size=True):
-    res = cli.main(cli.parse(argv + ['--device', 'cuda', '--seed', '0']))
+  real, orders = SP.psd_solve, []
+
+  def recording(*args, **kwargs):
+    orders.append(kwargs.get('orders'))
+    return real(*args, **kwargs)
+
+  # the wrapper counts its calls under the module's name
+  recording.launches = real.launches
+  SP.psd_solve = recording
+  profiling.reset()
+  profiling.enable(syncs=False)
+  try:
+    with checked_k1(first_of_each_size=True):
+      res = cli.main(cli.parse(argv + ['--device', 'cuda', '--seed', '0']))
+    counters = profiling.snapshot()['counters']
+  finally:
+    profiling.disable()
+    profiling.reset()
+    SP.psd_solve = real
+    real.launches = recording.launches
   torch.cuda.synchronize()
-  assert SP.psd_solve.launches == 0
+  iterations = counters.get('solver.iterations', 0)
+  assert counters.get('solver.fused_iterations', 0) == iterations
+  assert iterations > 0 or not solves
+  assert all(o is not None for o in orders), orders
   return res, rk.raster_tiles.launches
 
 
@@ -126,7 +152,7 @@ def test_the_state_only_chain(card, tmp_path, monkeypatch):
       '--start_boost', '6', '--lr', '2e-4', '--aug_shift', '10',
       '--chunk_windows', '8', '--episodes_per_batch', str(CLI_BATCH),
       '--num_epochs', '1', '--max_steps_per_epoch', '2', '--log_steps', '1']
-  ts1, launches = _run(train_e2evmc, targs)
+  ts1, launches = _run(train_e2evmc, targs, solves=False)
   n_eval = min(2, len(split['eval']) // CLI_BATCH)
   # one render of the B*T <= 100 frames and one of the goals, a step
   assert ts1.step == 2 and launches == 2 * (2 + n_eval)
@@ -149,7 +175,8 @@ def test_the_state_only_chain(card, tmp_path, monkeypatch):
   assert torch.equal(m_saved['exp_avg_sq'], m1['exp_avg_sq'])
   assert m_saved['exp_avg'].device == p0.device
   del saved, m_saved
-  ts2, _ = _run(train_e2evmc, targs + ['--max_total_steps', '3'])
+  ts2, _ = _run(train_e2evmc, targs + ['--max_total_steps', '3'],
+                solves=False)
   m2 = ts2.optimizer.state[next(ts2.model.parameters())]
   assert ts2.step == 3 and float(m2['step']) == 3.0
   # Adam's moments continued: m2 = b1 m1 + (1 - b1) g and

@@ -172,7 +172,8 @@ def test_slice1_frame_matches_the_cpu_path(slice1):
 def test_slice1_steps_and_renders(slice1):
   """Control steps of step + render: the cubes rest on the table, the
   frames are 256x256 uint8 and not constant, the depth finite, K1 runs once
-  a render and K2 never (rolling rows: the plain psd iteration)."""
+  a render and K2's wrapper is never called (every substep the replay of
+  a chain captured at the reset; the replay runs K2's 'psd' form)."""
   env, es, _ = slice1
   dev = es.phys.qpos.device
   base = torch.tensor([0.1, 0.0, 0.2, 1.0], device=dev).expand(ENVS, 4)
@@ -528,9 +529,9 @@ def test_each_other_scene_steps_and_renders(shapes, card):
 @pytest.mark.parametrize('shapes', ['pad2-cube2-clutter4', 'nut-cone'])
 def test_clutter4_and_nutcone_step_and_render_at_b64(shapes, card):
   """The production envs at 64 envs: the first render held against the
-  twin, then control steps of step + render, K1 once a render and K2
-  never (rolling rows), the state and frames finite, the objects above
-  the table."""
+  twin, then control steps of step + render, K1 once a render and K2's
+  wrapper never called (every substep the replay of a chain captured at
+  the reset), the state and frames finite, the objects above the table."""
   env = make_env(shapes, device=card, settle_steps=SCENE_SETTLE)
   es = env.reset_random(ENVS, torch.Generator(device=card).manual_seed(5))
   with checked_k1():

@@ -393,12 +393,14 @@ def test_kernel_library_is_keyed_by_shape_and_plan():
   from geeco_tpu_torch.utils import build
   spec = SP.build_spec(128, 530, 39, 6, 128, 9)
   assert {k: spec[k] for k in build.PSD_KEYS} == dict(
-      nI=530, nv=39, nE=6, K=128, nlim=9, cluster=1, threads=544,
-      resident=True, jreg=40, xreg=False)
+      nI=530, nv=39, nE=6, K=128, nlim=9, ngrp=4, form=0, cluster=1,
+      threads=544, resident=True, jreg=40, xreg=False,
+      **dict.fromkeys(SP.ORDER_KEYS, 0))
   path, args = build.psd_library(spec)
   assert path.startswith(build.BUILD_DIR) and path.endswith('.so')
   for flag in ('-DPSD_NI=530', '-DPSD_NV=39', '-DPSD_NE=6', '-DPSD_K=128',
-               '-DPSD_NLIM=9', '-DPSD_C=1', '-DPSD_THREADS=544',
+               '-DPSD_NLIM=9', '-DPSD_NGRP=4', '-DPSD_FORM=0', '-DPSD_C=1',
+               '-DPSD_THREADS=544',
                '-DPSD_RESIDENT=1', '-DPSD_JREG=40', '-DPSD_XREG=0'):
     assert flag in args
   assert build.psd_library(spec)[0] == path
